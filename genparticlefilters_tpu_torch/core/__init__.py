@@ -1,0 +1,14 @@
+from .choicemap import (ChoiceMap, Entry, Selection, EMPTY, ALL, select,
+                        normalize_address)
+from .distributions import Distribution, Normal, Bernoulli, normal, bernoulli
+from .gfi import (Trace, GenFn, DynamicGenFn, gen, trace, NoChange,
+                  UnknownChange, Extend, batched_interpretation,
+                  current_batch, simulate, generate, update, regenerate)
+from .combinators import Unfold
+
+__all__ = ["ChoiceMap", "Entry", "Selection", "EMPTY", "ALL", "select",
+           "normalize_address", "Distribution",
+           "Normal", "Bernoulli", "normal", "bernoulli", "Trace", "GenFn",
+           "DynamicGenFn", "gen", "trace", "NoChange", "UnknownChange",
+           "Extend", "batched_interpretation", "current_batch", "simulate",
+           "generate", "update", "regenerate", "Unfold"]

@@ -1,0 +1,66 @@
+"""Particle-axis specs for batched traces (time-major layout).
+
+Where the particle axis sits in each stored trace leaf is a layout choice
+that every resampling gather has to know. Each generative function states
+it through ``GenFn.trace_axes``: :class:`~.combinators.Unfold` keeps its
+packed step storage time-major (``mat [T*R, N]``, particle axis 1) and its
+active length ``t`` shared (spec ``None``); per-particle scores and carries
+sit at axis 0. :func:`axes_spec` gathers those specs for a whole tree.
+
+Only the batched form is ported; the per-particle (vmapped) form waits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .gfi import Trace
+from .tree import tree_map
+
+__all__ = ["axes_spec", "gen_spec", "const_spec", "spec_n"]
+
+
+def _leaf_axis(x, axis, n=None):
+    """Shape-aware spec for one leaf: a leaf that cannot hold the particle
+    axis at ``axis`` — rank too small, or (when the particle count ``n`` is
+    known) the wrong extent there — is SHARED across particles (``None``).
+    Non-tensor leaves (Python ints) are always shared."""
+    if axis is None or not isinstance(x, torch.Tensor):
+        return None
+    if x.dim() <= axis:
+        return None
+    if n is not None and x.shape[axis] != n:
+        return None
+    return axis
+
+
+def spec_n(score, axis):
+    """The particle count implied by a trace's per-particle score leaf, or
+    None when the score carries no particle axis."""
+    s = tuple(score.shape)
+    return s[axis] if len(s) > axis else None
+
+
+def const_spec(subtree, axis, n=None):
+    """Spec tree with every leaf at ``axis`` (shape-aware, no Trace
+    recursion)."""
+    return tree_map(lambda x: _leaf_axis(x, axis, n), subtree)
+
+
+def gen_spec(subtree, axis, n=None):
+    """Spec for an arbitrary container: leaves at ``axis`` (shape-aware);
+    nested traces defer to their generative function's ``trace_axes``."""
+    return tree_map(
+        lambda x: (x.gen_fn.trace_axes(x, axis) if isinstance(x, Trace)
+                   else _leaf_axis(x, axis, n)),
+        subtree, is_leaf=lambda x: isinstance(x, Trace))
+
+
+def axes_spec(obj, axis: int = 0):
+    """Per-leaf particle-axis spec for any tree that may contain traces.
+    Top-level traces use the SMC convention that their args are one shared
+    tuple (``args_shared=True``)."""
+    return tree_map(
+        lambda x: (x.gen_fn.trace_axes(x, axis, args_shared=True)
+                   if isinstance(x, Trace) else axis),
+        obj, is_leaf=lambda x: isinstance(x, Trace))

@@ -1,0 +1,586 @@
+"""The Generative Function Interface on tensors: traces, the ``@gen`` DSL
+and its batched interpreters.
+
+A trace is a plain object holding ``(gen_fn, args, retval, score, inner)``;
+``inner`` holds the choices. Models are written with :func:`gen`, and
+random choices are made with ``trace(addr, dist)``, which dispatches to the
+interpreter on top of a Python handler stack.
+
+Weight semantics (Gen's GFI contract):
+
+- ``generate``:   weight = Σ log p(constrained choices | rest)
+- ``update``:     weight = score_new − score_old − Σ log q(freshly sampled)
+- ``regenerate``: weight = (score_new − Σ_sel lp_new) − (score_old − Σ_sel lp_old)
+
+Batched interpretation (:class:`batched_interpretation`) runs ONE
+interpretation with ``[batch]``-leading site values: a value is
+per-particle iff its leading dimension equals the batch size, anything
+else is shared across particles. Where the JAX package takes a PRNG key,
+the verbs here take a ``torch.Generator``; sites draw from it in order.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from .choicemap import ChoiceMap, Entry, Selection, EMPTY, normalize_address
+from .distributions import Distribution
+
+__all__ = [
+    "Trace", "GenFn", "DynamicGenFn", "gen", "trace",
+    "NoChange", "UnknownChange", "Extend", "batched_interpretation",
+    "current_batch", "simulate", "generate", "update", "regenerate",
+]
+
+
+# ---------------------------------------------------------------------------
+# Argdiffs
+# ---------------------------------------------------------------------------
+
+class NoChange:
+    def __repr__(self):
+        return "NoChange()"
+
+
+class UnknownChange:
+    def __repr__(self):
+        return "UnknownChange()"
+
+
+class Extend:
+    """Argdiff for a combinator length argument: a promise that the new
+    length equals the old plus ``k`` and that constraints only target the
+    newly activated steps. It selects the O(k) extension path of
+    :class:`~.combinators.Unfold`."""
+
+    __slots__ = ("k",)
+
+    def __init__(self, k: int = 1):
+        self.k = int(k)
+
+    def __repr__(self):
+        return f"Extend({self.k})"
+
+
+# ---------------------------------------------------------------------------
+# Trace
+# ---------------------------------------------------------------------------
+
+class Trace:
+    """An execution record: gen_fn, args, retval, score and a
+    gen_fn-specific ``inner`` payload holding the choices."""
+
+    __slots__ = ("gen_fn", "args", "retval", "score", "inner")
+
+    def __init__(self, gen_fn, args, retval, score, inner):
+        self.gen_fn = gen_fn
+        self.args = args
+        self.retval = retval
+        self.score = score
+        self.inner = inner
+
+    # tree protocol (core/tree.py): the gen_fn is static structure
+    def tree_flatten(self):
+        return (self.args, self.retval, self.score, self.inner), self.gen_fn
+
+    @classmethod
+    def tree_unflatten(cls, gen_fn, children):
+        return cls(gen_fn, *children)
+
+    def get_choices(self) -> ChoiceMap:
+        return self.gen_fn.trace_choices(self)
+
+    def get_args(self):
+        return self.args
+
+    def get_retval(self):
+        return self.gen_fn.trace_retval(self)
+
+
+# ---------------------------------------------------------------------------
+# GenFn base
+# ---------------------------------------------------------------------------
+
+class GenFn:
+    """Base class for generative functions."""
+
+    #: opt-in marker for batched interpretation: True only when the body is
+    #: batch-polymorphic (every value may carry a leading particle axis)
+    batch_safe: bool = False
+
+    def simulate(self, gen, args) -> Trace:
+        raise NotImplementedError
+
+    def generate(self, gen, args, constraints: ChoiceMap = EMPTY):
+        raise NotImplementedError
+
+    def update(self, gen, tr: Trace, new_args, argdiffs,
+               constraints: ChoiceMap):
+        new_tr, logq, discard = self._update(gen, tr, new_args, constraints,
+                                             argdiffs=argdiffs)
+        weight = new_tr.score - tr.score - logq
+        return new_tr, weight, UnknownChange(), discard
+
+    def regenerate(self, gen, tr: Trace, new_args, argdiffs,
+                   selection: Selection, window: int | None = None):
+        new_tr, sel_new, sel_old = self._regenerate(
+            gen, tr, new_args, selection, window=window)
+        weight = (new_tr.score - sel_new) - (tr.score - sel_old)
+        return new_tr, weight
+
+    # -- internal protocol (used by combinators) --------------------------
+    def _update(self, gen, tr, new_args, constraints, argdiffs=None):
+        """Returns (new_trace, logq_fresh, discard)."""
+        raise NotImplementedError
+
+    def _regenerate(self, gen, tr, new_args, selection, window=None,
+                    old_args=None, need_sel_old=True):
+        """Returns (new_trace, sel_lp_new, sel_lp_old)."""
+        raise NotImplementedError
+
+    def _sel_logp(self, tr, args, selection, window=None):
+        """Force-execute with the old trace's values under ``args``; returns
+        ``(retval, Σ selected∧present site log-probs, Σ all present site
+        log-probs)``."""
+        raise NotImplementedError
+
+    # -- structure --------------------------------------------------------
+    def trace_retval(self, tr: Trace):
+        return tr.retval
+
+    def trace_choices(self, tr: Trace) -> ChoiceMap:
+        raise NotImplementedError
+
+    def mask_trace(self, tr: Trace, m) -> Trace:
+        """AND every choice's presence mask with ``m``."""
+        raise NotImplementedError
+
+    def trace_axes(self, tr: Trace, axis: int = 0,
+                   args_shared: bool = False):
+        """Particle-axis spec for this trace stacked across particles: the
+        same structure as ``tr``, each leaf an int axis or ``None`` for
+        values shared across particles (see core/batching.py)."""
+        from .batching import gen_spec, const_spec, spec_n
+        n = spec_n(tr.score, axis)
+        args_spec = (const_spec(tr.args, None) if args_shared
+                     else gen_spec(tr.args, axis, n))
+        return Trace(self, args_spec, gen_spec(tr.retval, axis, n), axis,
+                     gen_spec(tr.inner, axis, n))
+
+    def trace_choice_axes(self, tr: Trace, axis: int = 0):
+        """``{address: particle-axis}`` for every entry of the choices."""
+        return {k: axis for k in self.trace_choices(tr).entries}
+
+
+# ---------------------------------------------------------------------------
+# Handler machinery for the @gen DSL
+# ---------------------------------------------------------------------------
+
+_HANDLER_STACK = []
+_BATCH_STACK: list = []
+
+
+class batched_interpretation:
+    """Context manager: run interpreters in BATCHED mode over ``batch``
+    particles — one interpretation with [batch]-leading site values.
+
+    Batchedness convention: a value or distribution parameter carries the
+    particle axis iff its leading dim equals ``batch``; anything else is
+    shared. A genuinely shared array whose leading dim equals the particle
+    count is indistinguishable — avoid such shapes in batched models."""
+
+    def __init__(self, batch):
+        self.batch = None if batch is None else int(batch)
+
+    def __enter__(self):
+        _BATCH_STACK.append(self.batch)
+        return self.batch
+
+    def __exit__(self, *exc):
+        _BATCH_STACK.pop()
+        return False
+
+
+def current_batch():
+    """The active batched-interpretation size, or None (per-particle)."""
+    return _BATCH_STACK[-1] if _BATCH_STACK else None
+
+
+def _bsum(x, batch):
+    """Reduce a site log-prob into a handler accumulator: Σ over event dims
+    keeping the leading particle axis in batched mode; shared values reduce
+    to a scalar, which broadcasts into the [batch] accumulator."""
+    x = torch.as_tensor(x)
+    if batch is not None and x.dim() >= 1 and x.shape[0] == batch:
+        return x if x.dim() == 1 else x.reshape(batch, -1).sum(dim=1)
+    return x.sum()
+
+
+def trace(addr, dist_or_gf, args=None):
+    """Make a random choice at ``addr`` inside a ``@gen`` function body:
+    ``trace("x", normal(0., 1.))``."""
+    if not _HANDLER_STACK:
+        raise RuntimeError(
+            "trace() called outside of a generative-function interpreter; "
+            "models must be run via generate/update/regenerate")
+    h = _HANDLER_STACK[-1]
+    key = normalize_address(addr)
+    if isinstance(dist_or_gf, Distribution):
+        return h.dist_site(key, dist_or_gf)
+    raise NotImplementedError(
+        "calls to sub-generative-functions inside a @gen body are not "
+        "ported yet; only primitive distribution sites are supported")
+
+
+def _masked_sum(lp, m, batch=None):
+    """Σ lp over set mask bits; NaN/Inf-safe (masked slots contribute 0)."""
+    if m is True:
+        return _bsum(lp, batch)
+    if m is False:
+        return torch.zeros((), dtype=torch.float32, device=lp.device)
+    shp = torch.broadcast_shapes(lp.shape, m.shape)
+    return _bsum(torch.where(m.expand(shp), lp.expand(shp),
+                             torch.zeros((), dtype=lp.dtype,
+                                         device=lp.device)), batch)
+
+
+def _broadcast_val(value, like):
+    v = torch.as_tensor(value, device=like.device)
+    if v.dtype != like.dtype:
+        v = v.to(like.dtype)
+    return v.expand(like.shape)
+
+
+def _mask_to(m, like_shape):
+    """A presence/selection mask aligned against the LEADING axes of a
+    value of shape ``like_shape`` (static True/False pass through)."""
+    if m is True or m is False:
+        return m
+    mb = m.to(torch.bool)
+    extra = len(like_shape) - mb.dim()
+    if extra > 0:
+        mb = mb.reshape(tuple(mb.shape) + (1,) * extra)
+    return mb.expand(like_shape)
+
+
+def _and_masks(a, b):
+    if a is True:
+        return b
+    if b is True:
+        return a
+    if a is False or b is False:
+        return False
+    return torch.logical_and(a, b)
+
+
+def _not_mask(m):
+    if m is True:
+        return False
+    if m is False:
+        return True
+    return torch.logical_not(m)
+
+
+class _Handler:
+    """Shared accumulator state for the interpreters of the DSL. In batched
+    mode every accumulator is a per-particle [batch] vector."""
+
+    def __init__(self, gen, device):
+        self.gen = gen
+        self.device = torch.device(device)
+        self.batch = current_batch()
+        self.sites: Dict[Tuple, Entry] = {}
+        self.score = self._zero()
+
+    def _zero(self):
+        shape = () if self.batch is None else (self.batch,)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def sample_site(self, dist):
+        if self.gen is None:
+            raise RuntimeError("this interpreter does not sample; a site "
+                               "required sampling but no generator was "
+                               "provided")
+        if self.batch is None:
+            return dist.sample(self.gen)
+        return dist.sample_batched(self.gen, self.batch)
+
+    def record(self, addr, value, lp):
+        if addr in self.sites:
+            raise ValueError(f"duplicate address {addr!r} in @gen function")
+        self.sites[addr] = Entry(value, True)
+        self.score = self.score + _bsum(lp, self.batch)
+
+    def inner(self):
+        return {"sites": self.sites, "subs": {}}
+
+
+class _SimulateHandler(_Handler):
+    def dist_site(self, addr, dist):
+        v = self.sample_site(dist)
+        self.record(addr, v, dist.log_prob(v))
+        return v
+
+
+class _GenerateHandler(_Handler):
+    def __init__(self, gen, constraints: ChoiceMap, device):
+        super().__init__(gen, device)
+        self.constraints = constraints
+        self.weight = self._zero()
+
+    def dist_site(self, addr, dist):
+        e = self.constraints.resolve(addr)
+        if e is None:
+            v = self.sample_site(dist)
+            self.record(addr, v, dist.log_prob(v))
+            return v
+        if e.mask is True:
+            # fully-constrained site: store the SHARED value (no particle
+            # axis, no sampling)
+            v = torch.as_tensor(e.value, device=self.device)
+            lp = dist.log_prob(v)
+            self.weight = self.weight + _bsum(lp, self.batch)
+            self.record(addr, v, lp)
+            return v
+        sampled = self.sample_site(dist)
+        m = _mask_to(e.mask, sampled.shape)
+        v = torch.where(m, _broadcast_val(e.value, sampled), sampled)
+        lp = dist.log_prob(v)
+        self.weight = self.weight + _masked_sum(lp, m, self.batch)
+        self.record(addr, v, lp)
+        return v
+
+
+class _UpdateHandler(_Handler):
+    def __init__(self, gen, old_inner, constraints: ChoiceMap, device):
+        super().__init__(gen, device)
+        self.old_sites = old_inner["sites"]
+        self.constraints = constraints
+        self.logq = self._zero()
+        self.discard: Dict[Tuple, Entry] = {}
+
+    def dist_site(self, addr, dist):
+        e = self.constraints.resolve(addr)
+        old = self.old_sites.get(addr)
+
+        # static fast paths — no sampling, SHARED storage preserved
+        if e is not None and e.mask is True:
+            v = torch.as_tensor(e.value, device=self.device)
+            if old is not None and old.mask is not False:
+                self.discard[addr] = Entry(old.value, old.mask)
+            self.record(addr, v, dist.log_prob(v))
+            return v
+        if e is None and old is not None and old.mask is True:
+            v = old.value
+            self.record(addr, v, dist.log_prob(v))
+            return v
+
+        sampled = self.sample_site(dist)
+        shape = sampled.shape
+        mc = False if e is None else _mask_to(e.mask, shape)
+        mo = False if old is None else _mask_to(old.mask, shape)
+
+        # value priority: constraint > old > fresh
+        v = sampled
+        if mo is not False:
+            ov = _broadcast_val(old.value, sampled)
+            v = ov if mo is True else torch.where(mo, ov, v)
+        if mc is not False:
+            cv = _broadcast_val(e.value, sampled)
+            v = cv if mc is True else torch.where(mc, cv, v)
+
+        lp = dist.log_prob(v)
+        fresh = _and_masks(_not_mask(mc), _not_mask(mo))
+        if fresh is not False:
+            self.logq = self.logq + _masked_sum(lp, fresh, self.batch)
+        overwritten = _and_masks(mc, mo)
+        if overwritten is not False and old is not None:
+            self.discard[addr] = Entry(old.value, overwritten)
+        self.record(addr, v, lp)
+        return v
+
+
+class _RegenerateHandler(_Handler):
+    def __init__(self, gen, old_inner, selection: Selection, device):
+        super().__init__(gen, device)
+        self.old_sites = old_inner["sites"]
+        self.selection = selection
+        self.sel_new = self._zero()
+
+    def dist_site(self, addr, dist):
+        old = self.old_sites.get(addr)
+        sel = _scope_path(self.selection, addr).mask_at_leaf()
+        if old is not None and sel is False and old.mask is True:
+            # statically unselected, fully present: keep the old value
+            v = old.value
+            self.record(addr, v, dist.log_prob(v))
+            return v
+        sampled = self.sample_site(dist)
+        shape = sampled.shape
+        if old is None:
+            # structurally new site: fresh in both the new score and
+            # sel_new, cancelling in the weight
+            lp = dist.log_prob(sampled)
+            self.sel_new = self.sel_new + _bsum(lp, self.batch)
+            self.record(addr, sampled, lp)
+            return sampled
+        mo = _mask_to(old.mask, shape)
+        ms = _mask_to(sel, shape)
+        ov = _broadcast_val(old.value, sampled)
+        # selected (or old-absent) slots are resampled
+        resample = _not_mask(_and_masks(mo, _not_mask(ms)))
+        if resample is False:
+            v = ov
+        elif resample is True:
+            v = sampled
+        else:
+            v = torch.where(resample, sampled, ov)
+        lp = dist.log_prob(v)
+        if resample is not False:
+            self.sel_new = self.sel_new + _masked_sum(lp, resample,
+                                                      self.batch)
+        self.record(addr, v, lp)
+        return v
+
+
+class _SelLogpHandler(_Handler):
+    """Re-execute a body FORCING the old trace's stored values, accumulating
+    the selection-masked old log-probs (regenerate's ``sel_old`` term) and
+    the total old score. Never samples."""
+
+    def __init__(self, old_inner, selection: Selection, device):
+        super().__init__(None, device)
+        self.old_sites = old_inner["sites"]
+        self.selection = selection
+        self.sel_old = self._zero()
+
+    def dist_site(self, addr, dist):
+        old = self.old_sites.get(addr)
+        if old is None:
+            raise NotImplementedError(
+                f"site {addr!r} is absent from the old trace; structurally "
+                "new sites are not ported yet")
+        v = old.value
+        mo = _mask_to(old.mask, v.shape)
+        if mo is False:
+            return v
+        lp = dist.log_prob(v)
+        self.score = self.score + _masked_sum(lp, mo, self.batch)
+        sel = _scope_path(self.selection, addr).mask_at_leaf()
+        m = _and_masks(_mask_to(sel, v.shape), mo)
+        if m is not False:
+            self.sel_old = self.sel_old + _masked_sum(lp, m, self.batch)
+        return v
+
+
+def _scope_path(sel, path):
+    out = sel
+    for comp in path:
+        out = out.scope(comp)
+    return out
+
+
+def _trace_device(tr: Trace):
+    return tr.score.device
+
+
+# ---------------------------------------------------------------------------
+# DynamicGenFn — the @gen DSL
+# ---------------------------------------------------------------------------
+
+class DynamicGenFn(GenFn):
+    """A generative function defined by a Python body using :func:`trace`.
+    The address set must be the same on every execution."""
+
+    def __init__(self, fn: Callable, name: str | None = None):
+        self.fn = fn
+        self.name = name or getattr(fn, "__name__", "gen_fn")
+
+    def __repr__(self):
+        return f"@gen {self.name}"
+
+    def _run(self, handler, args):
+        _HANDLER_STACK.append(handler)
+        try:
+            retval = self.fn(*args)
+        finally:
+            _HANDLER_STACK.pop()
+        return retval
+
+    def _mk_trace(self, args, retval, h: _Handler):
+        return Trace(self, args, retval, h.score, h.inner())
+
+    def simulate(self, gen, args):
+        h = _SimulateHandler(gen, gen.device)
+        retval = self._run(h, args)
+        return self._mk_trace(args, retval, h)
+
+    def generate(self, gen, args, constraints: ChoiceMap = EMPTY):
+        h = _GenerateHandler(gen, constraints, gen.device)
+        retval = self._run(h, args)
+        return self._mk_trace(args, retval, h), h.weight
+
+    def _update(self, gen, tr: Trace, new_args, constraints: ChoiceMap,
+                argdiffs=None):
+        h = _UpdateHandler(gen, tr.inner, constraints, _trace_device(tr))
+        retval = self._run(h, new_args)
+        return (self._mk_trace(new_args, retval, h), h.logq,
+                ChoiceMap(h.discard))
+
+    def _regenerate(self, gen, tr: Trace, new_args, selection: Selection,
+                    window=None, old_args=None, need_sel_old=True):
+        h = _RegenerateHandler(gen, tr.inner, selection, _trace_device(tr))
+        retval = self._run(h, new_args)
+        if not need_sel_old:
+            sel_old = torch.zeros((), dtype=torch.float32,
+                                  device=_trace_device(tr))
+        else:
+            if old_args is None:
+                old_args = tr.args if tr.args else new_args
+            _, sel_old, _ = self._sel_logp(tr, old_args, selection)
+        return self._mk_trace(new_args, retval, h), h.sel_new, sel_old
+
+    def _sel_logp(self, tr: Trace, args, selection: Selection, window=None):
+        h = _SelLogpHandler(tr.inner, selection, _trace_device(tr))
+        retval = self._run(h, args)
+        return retval, h.sel_old, h.score
+
+    # -- structure --------------------------------------------------------
+    def trace_choices(self, tr: Trace) -> ChoiceMap:
+        return ChoiceMap(dict(tr.inner["sites"]))
+
+    def mask_trace(self, tr: Trace, m) -> Trace:
+        sites = {a: Entry(e.value, _and_masks(e.mask, m))
+                 for a, e in tr.inner["sites"].items()}
+        return Trace(tr.gen_fn, tr.args, tr.retval, tr.score,
+                     {"sites": sites, "subs": {}})
+
+
+def gen(fn: Callable) -> DynamicGenFn:
+    """Decorator: turn a Python function using :func:`trace` into a
+    generative function (Gen's ``@gen``)."""
+    return DynamicGenFn(fn)
+
+
+# ---------------------------------------------------------------------------
+# Module-level GFI verbs (Gen-style free functions)
+# ---------------------------------------------------------------------------
+
+def simulate(gf: GenFn, gen, args):
+    return gf.simulate(gen, args)
+
+
+def generate(gf: GenFn, gen, args, constraints: ChoiceMap = EMPTY):
+    return gf.generate(gen, args, constraints)
+
+
+def update(gen, tr: Trace, new_args, argdiffs, constraints: ChoiceMap):
+    return tr.gen_fn.update(gen, tr, new_args, argdiffs, constraints)
+
+
+def regenerate(gen, tr: Trace, new_args, argdiffs, selection: Selection,
+               window: int | None = None):
+    return tr.gen_fn.regenerate(gen, tr, new_args, argdiffs, selection,
+                                window=window)

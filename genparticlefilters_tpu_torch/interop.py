@@ -1,0 +1,68 @@
+"""Carry a filter state across from the JAX package, and back.
+
+A state crosses as the list of its leaves in the JAX package's flattening
+order (``jax.tree_util.tree_flatten(state)[0]``, each converted to a
+numpy array by the caller). For the object-motion filter those are::
+
+    args t, x0 y, x0 moving,            # the trace's shared args
+    score [N] f32,
+    carry y [N] f32, carry moving [N] bool,
+    mat [T*R, N] i32, y_obs [T] f32,    # packed step storage (+ extras)
+    t,                                  # active length
+    log_weights [N] f32, log_ml_est f32, parents [N] i32
+
+float32 leaves cross bit for bit and bool leaves as bool. The port's own
+flattening (core/tree.py) has the same order, so the structure comes from
+a template state built by the port itself. This module never sees JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.tree import tree_flatten, tree_unflatten
+from .smc.initialize import pf_initialize
+
+__all__ = ["state_from_numpy", "state_to_numpy"]
+
+
+def state_from_numpy(model, arrays, model_args, observations, device=None):
+    """The port's ``ParticleFilterState`` of ``model`` holding ``arrays``
+    (the JAX state's leaves as numpy arrays, in its order). ``model_args``
+    and ``observations`` are those the state was initialized with: they fix
+    which sites are stored shared, hence the storage layout."""
+    arrays = list(arrays)
+    device = torch.device("cpu" if device is None else device)
+    n = int(np.shape(arrays[-3])[0])   # log_weights [N]
+    gen = torch.Generator(device=device).manual_seed(0)
+    template = pf_initialize(gen, model, model_args, observations, n)
+    t_leaves, treedef = tree_flatten(template)
+    if len(t_leaves) != len(arrays):
+        raise ValueError(f"expected {len(t_leaves)} leaves, got "
+                         f"{len(arrays)}")
+    leaves = []
+    for i, (a, ref) in enumerate(zip(arrays, t_leaves)):
+        a = np.asarray(a)
+        if not isinstance(ref, torch.Tensor):
+            leaves.append(int(a))
+            continue
+        x = torch.from_numpy(np.array(a)).to(device)
+        if x.dtype != ref.dtype or tuple(x.shape) != tuple(ref.shape):
+            raise ValueError(f"leaf {i}: got {x.dtype} {tuple(x.shape)}, "
+                             f"the port stores {ref.dtype} "
+                             f"{tuple(ref.shape)}")
+        leaves.append(x)
+    return tree_unflatten(treedef, leaves)
+
+
+def state_to_numpy(state):
+    """The state's leaves as numpy arrays, in the JAX package's order
+    (Python int leaves come back as int32 scalars)."""
+    out = []
+    for leaf in tree_flatten(state)[0]:
+        if isinstance(leaf, torch.Tensor):
+            out.append(leaf.detach().cpu().numpy())
+        else:
+            out.append(np.asarray(leaf, dtype=np.int32))
+    return out

@@ -1,0 +1,87 @@
+"""Build and load the package's CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. At
+first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+under ``genparticlefilters_tpu_torch/_build/`` (git-ignored), named by a
+hash of the source so an edited source rebuilds, and loaded with
+``ctypes``. Nothing here runs at import time; a missing ``nvcc`` or a
+failed compile raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["load_library", "build_info", "NVCC_FLAGS"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# name -> (ctypes library, build record); filled at first use
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/ at first use and need the CUDA toolkit")
+
+
+def _compile(name: str) -> dict:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    record = {"name": name, "source": str(src.relative_to(_PKG.parent)),
+              "library": str(out), "seconds": 0.0, "cached": True,
+              "ptxas": ""}
+    if out.exists():
+        return record
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    record.update(seconds=seconds, cached=False,
+                  ptxas=(proc.stdout + proc.stderr).strip())
+    return record
+
+
+def load_library(name: str, bind) -> ctypes.CDLL:
+    """The loaded ``ctypes`` library of ``csrc/<name>.cu``, building it at
+    first use. ``bind(lib)`` sets every function's ``argtypes`` and
+    ``restype`` once, right after loading."""
+    hit = _LOADED.get(name)
+    if hit is not None:
+        return hit[0]
+    record = _compile(name)
+    lib = ctypes.CDLL(record["library"])
+    bind(lib)
+    _LOADED[name] = (lib, record)
+    return lib
+
+
+def build_info(name: str) -> dict:
+    """What the build of ``name`` did: source, library path, compile
+    seconds (0 when a built library was reused) and nvcc's ``-Xptxas -v``
+    report. Raises if the library has not been loaded."""
+    return dict(_LOADED[name][1])
