@@ -1,26 +1,42 @@
-"""Drive the PyTorch port's main path once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases (each prints one summary line; any failure raises, so the exit
-code is non-zero and no result line is printed):
+Phases (each prints summary lines; any failure raises, so the exit code is
+non-zero and no result line is printed):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card;
-2. build: compile the G1 gather kernel (csrc/stairs_gather.cu) for sm_90a;
-3. kernel vs plain: G1 against its plain PyTorch version on the card,
-   bit-equal at the main-path shape and the edge shapes;
+2. build: compile the kernels for sm_90a, one nvcc per source, side by
+   side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu) and G4
+   (csrc/merge_count.cu);
+3. kernel vs plain: each kernel against its plain PyTorch version on the
+   card, bit-equal at the main-path shapes and the edge shapes;
 4. main path: the object-motion filter at N=100K, T=10, systematic
    resampling, on cuda — G1's launch count must rise during the run — then
    the posterior against exact enumeration over 4 seeds;
-5. timing: G1 against its plain version (CUDA events, medians: device
-   time with calls queued back to back, and one call with the host in the
-   loop), the whole filter per run at N=100K and N=1M, and a torch.profiler
-   breakdown of one run (device busy time by kernel, host time by phase).
+4a-4e. the other paths, each with every launch count set to 0 just before
+   it and read just after: (a) residual resampling at N=100K (G2 counting
+   the remainder, then G1), (b) the same at the README size N=100,
+   (c) multinomial and unsorted stratified at N=100K (G2 with data), each
+   with the posterior check; (d) sub-state resampling of two halves of
+   the N=100K state, multinomial and residual (G4), with the block-LML,
+   global-LML and block-ancestry checks; (e) the linear-Gaussian filter
+   at N=10K, T=8, systematic and stratified, against the Kalman filter;
+5. timing: each kernel against its plain version (CUDA events, medians:
+   device time with calls queued back to back, and one call with the host
+   in the loop) at N=100K and N=1M; the whole filter per run at N=100K and
+   N=1M for systematic, residual and multinomial resampling; the host
+   syncs of one run; and a torch.profiler breakdown of the systematic and
+   residual runs (device busy time by kernel, host time by phase).
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the card's name and power limit from nvidia-smi.
+The line before the last is the card's name and power limit from
+nvidia-smi; before it, a JSON line lists each kernel with its launches on
+the path that exercises it ((4) for G1, (4a) for G2, (4d) for G4), its
+largest error against the plain version and its device time at N=100K.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import json
 import math
 import shutil
@@ -28,15 +44,26 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 N_MAIN, T_MAIN, SWITCH = 100_000, 10, 5
+N_SMALL = 100                   # the README's config-1 particle count
 WIDTHS = (1, 1, 1, 40)          # the main path's pieces: score, carry y,
 #                                 carry moving, packed step store mat
-KERNEL_SRC = "genparticlefilters_tpu_torch/csrc/stairs_gather.cu"
-REPLACES = "genparticlefilters_tpu/ops/fused_gather.py:710"
+CSRC = "genparticlefilters_tpu_torch/csrc/"
+TPU = "genparticlefilters_tpu/ops/"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "stairs_gather (G1)": (CSRC + "stairs_gather.cu",
+                           TPU + "fused_gather.py:710"),
+    "stairs_gather_u (G2)": (CSRC + "stairs_gather_u.cu",
+                             TPU + "fused_gather.py:710 (is_float=True), "
+                             + TPU + "fused_gather.py:196"),
+    "merge_count (G4)": (CSRC + "merge_count.cu", TPU + "merge_count.py:41"),
+}
 
 
 def _run(cmd):
@@ -51,6 +78,28 @@ def _card_line():
     line = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"]).splitlines()
     return line[0].strip() if line else "nvidia-smi gave no output"
+
+
+def _wrappers():
+    """Kernel name -> its wrapper (each carries a ``launches`` count)."""
+    from genparticlefilters_tpu_torch.ops.fused_gather import (
+        resample_gather_split, resample_gather_split_u)
+    from genparticlefilters_tpu_torch.ops.merge_count import merge_count
+    return dict(zip(KERNELS, (resample_gather_split, resample_gather_split_u,
+                              merge_count)))
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _short(counts):
+    return ", ".join(f"{k.split()[-1][1:-1]} {v}" for k, v in counts.items())
 
 
 def phase_environment():
@@ -73,15 +122,23 @@ def phase_environment():
 
 
 def phase_build():
-    from genparticlefilters_tpu_torch.ops import fused_gather
-    from genparticlefilters_tpu_torch.ops.build import (load_library,
+    from genparticlefilters_tpu_torch.ops import fused_gather as fg
+    from genparticlefilters_tpu_torch.ops.merge_count import (
+        _LIB as mc_lib, _bind as mc_bind)
+    from genparticlefilters_tpu_torch.ops.build import (load_libraries,
                                                         build_info)
-    load_library(fused_gather._LIB, fused_gather._bind)
-    info = build_info(fused_gather._LIB)
-    ptxas = " | ".join(l.strip() for l in info["ptxas"].splitlines()
-                       if "registers" in l or "spill" in l)
-    print(f"[2 build] {info['source']} -> sm_90a in {info['seconds']:.2f} s"
-          f" (cached={info['cached']}); ptxas: {ptxas}")
+    t0 = time.perf_counter()
+    load_libraries({fg._LIB: fg._bind, fg._LIB_U: fg._bind_u,
+                    mc_lib: mc_bind})
+    wall = time.perf_counter() - t0
+    for lib in (fg._LIB, fg._LIB_U, mc_lib):
+        info = build_info(lib)
+        ptxas = " | ".join(l.strip() for l in info["ptxas"].splitlines()
+                           if "registers" in l or "spill" in l)
+        print(f"[2 build] {info['source']} -> sm_90a in "
+              f"{info['seconds']:.2f} s (cached={info['cached']}); "
+              f"ptxas: {ptxas}")
+    print(f"[2 build] three kernels built side by side in {wall:.2f} s")
 
 
 def _weights(kind, n, dev, gen):
@@ -99,15 +156,23 @@ def _weights(kind, n, dev, gen):
     return (w / w.sum()).to(torch.float32)
 
 
-def phase_kernel_vs_plain():
+def _pieces(widths, n, dev, gen):
+    return [torch.randint(-2**31, 2**31 - 1, (w, n), generator=gen,
+                          device=dev, dtype=torch.int32) for w in widths]
+
+
+def _max_err(outs, refs):
+    return max([int((o.long() - r.long()).abs().max().item())
+                for o, r in zip(outs, refs) if o.numel()] + [0])
+
+
+def _check_G1(dev, gen):
     from genparticlefilters_tpu_torch.ops.fused_gather import (
         resample_gather_split, resample_gather_split_plain)
     from genparticlefilters_tpu_torch.smc.resample import systematic_F
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    torch.manual_seed(0)
     cases = [(N_MAIN, N_MAIN, WIDTHS, "dirichlet"),
              (1_000_000, 1_000_000, WIDTHS, "dirichlet"),
+             (N_SMALL, N_SMALL, WIDTHS, "dirichlet"),
              (4096, 4096, (9, 1), "every8"),
              (2048, 1024, (40, 1, 7), "dirichlet"),
              (600, 1200, (40, 1, 7), "dirichlet"),
@@ -115,41 +180,204 @@ def phase_kernel_vs_plain():
              (900, 900, (5,), "degenerate")]
     max_err = 0
     for n, m, widths, kind in cases:
-        pieces = [torch.randint(-2**31, 2**31 - 1, (w, n), generator=gen,
-                                device=dev, dtype=torch.int32)
-                  for w in widths]
+        pieces = _pieces(widths, n, dev, gen)
         F = systematic_F(gen, _weights(kind, n, dev, gen), n_out=m)
         outs, parents = resample_gather_split(pieces, F, n_out=m)
         torch.cuda.synchronize()
         ref_outs, ref_par = resample_gather_split_plain(pieces, F, n_out=m)
         torch.cuda.synchronize()
-        if not torch.equal(parents, ref_par):
-            raise AssertionError(f"G1 parents differ at n={n} m={m} {kind}")
-        for o, r in zip(outs, ref_outs):
-            err = int((o.long() - r.long()).abs().max().item()) if m else 0
-            max_err = max(max_err, err)
-            if not torch.equal(o, r):
-                raise AssertionError(f"G1 rows differ at n={n} m={m} {kind}")
-        print(f"[3 kernel] n={n} n_out={m} widths={widths} {kind}: "
+        max_err = max(max_err, _max_err(outs, ref_outs),
+                      _max_err([parents], [ref_par]))
+        if not torch.equal(parents, ref_par) or not all(
+                torch.equal(o, r) for o, r in zip(outs, ref_outs)):
+            raise AssertionError(f"G1 differs at n={n} m={m} {kind}")
+        print(f"[3 G1] n={n} n_out={m} widths={widths} {kind}: "
               f"bit-equal to plain")
     return max_err
 
 
-def phase_main_path():
+def _brackets(n, m, kind, dev, gen):
+    """Float brackets c [n] (a zero-weight run, cummax-guarded, normalized)
+    and sorted queries u [m], with the edge cases of the G2 contract."""
+    w = _weights("dirichlet", n, dev, gen)
+    w[5:9] = 0.0
+    c = torch.cummax(torch.cumsum(w, 0), 0).values
+    c = c / c[-1]
+    u = torch.sort(torch.rand(m, generator=gen, device=dev)).values
+    if kind == "zero_u":
+        u[0] = 0.0                        # clamped to 1e-37 in the kernel
+    elif kind == "short_c":
+        c = c * 0.999                     # max(u) > c[-1]: the catch-all
+        u[-3:] = 0.9995
+        u = torch.sort(u).values
+    return c.contiguous(), u.contiguous()
+
+
+def _residual_queries(n, dev, gen):
+    """The role-swapped inputs of residual_F_fused at n: brackets = sorted
+    remainder uniforms (1.5/1.75 padded), queries = the residual cumsum."""
+    from genparticlefilters_tpu_torch.smc import resample as R
+    w = _weights("dirichlet", n, dev, gen)
+    det, n_res, resid = R._residual_split(w, n)
+    rc = torch.clamp_min(R._normalized(torch.cummax(
+        torch.cumsum(resid, 0), 0).values), 1e-30)
+    ce = R._sorted_uniforms_cum(gen, n, dev)
+    return R._residual_u(ce, n_res, n), rc
+
+
+def _check_G2(dev, gen):
+    from genparticlefilters_tpu_torch.ops.fused_gather import (
+        resample_gather_split_u, resample_gather_split_u_plain)
+    cases = [(N_MAIN, N_MAIN, WIDTHS, "plain"),
+             (1_000_000, 1_000_000, WIDTHS, "plain"),
+             (N_SMALL, N_SMALL, WIDTHS, "plain"),
+             (2048, 1024, (40, 1, 7), "plain"),
+             (1000, 2000, (40, 1, 7), "plain"),
+             (N_MAIN, N_MAIN, (), "residual count"),
+             (4096, 4096, (9, 1), "zero_u"),
+             (4096, 4096, (9, 1), "short_c")]
+    max_err = 0
+    for n, m, widths, kind in cases:
+        pieces = _pieces(widths, n, dev, gen)
+        if kind == "residual count":
+            c, u = _residual_queries(n, dev, gen)
+        else:
+            c, u = _brackets(n, m, kind, dev, gen)
+        outs, parents = resample_gather_split_u(pieces, c, u)
+        torch.cuda.synchronize()
+        ref_outs, ref_par = resample_gather_split_u_plain(pieces, c, u)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _max_err(outs, ref_outs),
+                      _max_err([parents], [ref_par]))
+        if not torch.equal(parents, ref_par) or not all(
+                torch.equal(o, r) for o, r in zip(outs, ref_outs)):
+            raise AssertionError(f"G2 differs at n={n} m={m} {kind}")
+        print(f"[3 G2] n={n} n_out={m} widths={widths} {kind}: "
+              f"bit-equal to plain")
+    return max_err
+
+
+def _check_G4(dev, gen):
+    from genparticlefilters_tpu_torch.ops.merge_count import (
+        merge_count, merge_count_plain)
+    cases = [(N_MAIN, N_MAIN, "plain"), (1_000_000, 1_000_000, "plain"),
+             (N_MAIN, 60_000, "plain"), (30_000, N_MAIN, "plain"),
+             (N_MAIN, N_MAIN, "ties"), (N_MAIN, N_MAIN, "padded")]
+    max_err = 0
+    for n, m, kind in cases:
+        c, u = _brackets(n, m, "plain", dev, gen)
+        if kind == "ties":   # exact ties u_j == c_i count (side='right')
+            u[: m // 4] = c[torch.randint(0, n, (m // 4,), generator=gen,
+                                          device=dev)]
+            u = torch.sort(u).values
+        elif kind == "padded":   # residual's padding of unused draws
+            u[m // 2:] = 1.75
+            u[m // 2 - 3:m // 2] = 1.5
+        F = merge_count(c, u)
+        torch.cuda.synchronize()
+        ref = merge_count_plain(c, u)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _max_err([F], [ref]))
+        if not torch.equal(F, ref):
+            raise AssertionError(f"G4 differs at n={n} m={m} {kind}")
+        print(f"[3 G4] n={n} m={m} {kind}: bit-equal to plain")
+    return max_err
+
+
+def phase_kernel_vs_plain():
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.manual_seed(0)
+    names = list(KERNELS)
+    return dict(zip(names, (_check_G1(dev, gen), _check_G2(dev, gen),
+                            _check_G4(dev, gen))))
+
+
+def _data():
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        synthesize_data)
+    y_obs, _ = synthesize_data(
+        torch.Generator(device="cuda").manual_seed(42), T_MAIN, SWITCH)
+    return y_obs
+
+
+def _stratified_unsorted_filter(gen, y_obs, n, t_max):
+    """The README filter loop of ``object_motion_filter`` with unsorted
+    stratified resampling (the method's default sorts by weight)."""
     import genparticlefilters_tpu_torch as g
     from genparticlefilters_tpu_torch.models.object_motion import (
-        synthesize_data, object_motion_filter, exact_posterior)
-    from genparticlefilters_tpu_torch.ops.fused_gather import (
-        resample_gather_split)
-    dev = torch.device("cuda")
-    y_obs, _ = synthesize_data(torch.Generator(device=dev).manual_seed(42),
-                               T_MAIN, SWITCH)
+        make_object_motion, init_state, obs_dense)
+    dev = gen.device
+    model, x0, obs = make_object_motion(t_max), init_state(dev), obs_dense(
+        y_obs)
+    state = g.pf_initialize(gen, model, (1, x0), obs, n)
+    steps = torch.arange(t_max, device=dev)
+    for t in range(1, t_max):
+        if bool(g.effective_sample_size(state) < 0.5 * n):
+            state = g.pf_stratified_resample(gen, state, check=False,
+                                             sort_particles=False)
+            m = (steps == t - 1) | (steps == t)
+            sel = g.Selection({("moving",): m, ("y",): m})
+            state = g.pf_rejuvenate(gen, state, g.mh, (sel,), window=2)
+        state = g.pf_update(gen, state, (t + 1, x0),
+                            (g.Extend(1), g.NoChange()), obs, check=False)
+    return state
 
-    resample_gather_split.launches = 0
-    st = object_motion_filter(torch.Generator(device=dev).manual_seed(100),
-                              y_obs, N_MAIN, T_MAIN)
+
+def _filter(method):
+    """``(gen, y_obs, n) -> state`` for a resampling method name."""
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        object_motion_filter)
+    if method == "stratified (unsorted)":
+        return lambda gen, y, n: _stratified_unsorted_filter(gen, y, n,
+                                                             T_MAIN)
+    return lambda gen, y, n: object_motion_filter(gen, y, n, T_MAIN,
+                                                  resample_method=method)
+
+
+def _posterior_check(run, y_obs, n, label, seeds=4, k_se=6.0,
+                     lml_se=False):
+    """The filter's P(moving@t) over ``seeds`` seeds within
+    k_se·stderr + 0.03 of exact enumeration, and the mean LML within 0.2
+    of the exact value (plus 6 LML stderrs where ``lml_se``)."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        exact_posterior)
+    post, exact_lml = exact_posterior(y_obs.cpu().numpy())
+    res, lmls = [], []
+    for s in range(seeds):
+        st = run(torch.Generator(device="cuda").manual_seed(200 + s), y_obs,
+                 n)
+        res.append([float(g.mean(st, (t, "moving")))
+                    for t in range(T_MAIN)])
+        lmls.append(float(g.log_ml_estimate(st)))
+    res = np.array(res)
+    est = res.mean(0)
+    stderr = res.std(0) / math.sqrt(len(res)) + 1e-3
+    if float(np.max(np.abs(est - post) - (k_se * stderr + 0.03))) >= 0:
+        raise AssertionError(f"{label}: posterior off: est {est} exact "
+                             f"{post}")
+    lml_lim = 0.2 + (6 * np.std(lmls) / math.sqrt(seeds) if lml_se else 0)
+    if abs(np.mean(lmls) - exact_lml) >= lml_lim:
+        raise AssertionError(f"{label}: LML {np.mean(lmls)} vs exact "
+                             f"{exact_lml}")
+    print(f"[{label} posterior] {seeds} seeds at N={n}: P(moving@t) max "
+          f"|est-exact| {float(np.max(np.abs(est - post))):.4f} (limit "
+          f"{k_se:g}*stderr+0.03), mean LML {np.mean(lmls):.4f} vs exact "
+          f"{exact_lml:.4f} (limit {lml_lim:.3f})")
+
+
+def phase_main_path(y_obs):
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        object_motion_filter)
+    _reset_counts()
+    st = object_motion_filter(torch.Generator(device="cuda").manual_seed(100),
+                              y_obs, N_MAIN, T_MAIN,
+                              resample_method="systematic")
     torch.cuda.synchronize()
-    launches = resample_gather_split.launches
+    counts = _counts()
+    launches = counts["stairs_gather (G1)"]
     if launches < 1:
         raise AssertionError("the main path never launched G1")
     lml = float(g.log_ml_estimate(st))
@@ -162,30 +390,161 @@ def phase_main_path():
     if tuple(store.mat.shape) != (4 * T_MAIN, N_MAIN):
         raise AssertionError(f"store shape {tuple(store.mat.shape)}")
     print(f"[4 main] object_motion_filter N={N_MAIN} T={T_MAIN} systematic "
-          f"on cuda: G1 launches {launches}, LML {lml:.4f}, "
+          f"on cuda: launches {_short(counts)}, LML {lml:.4f}, "
           f"mat {tuple(store.mat.shape)} int32 on cuda")
-
-    post, exact_lml = exact_posterior(y_obs.cpu().numpy())
-    res, lmls = [], []
-    for s in range(4):
-        sti = object_motion_filter(
-            torch.Generator(device=dev).manual_seed(200 + s), y_obs, N_MAIN,
-            T_MAIN)
-        res.append([float(g.mean(sti, (t, "moving")))
-                    for t in range(T_MAIN)])
-        lmls.append(float(g.log_ml_estimate(sti)))
-    res = np.array(res)
-    est = res.mean(0)
-    stderr = res.std(0) / math.sqrt(len(res)) + 1e-3
-    worst = float(np.max(np.abs(est - post) - (6 * stderr + 0.03)))
-    if worst >= 0:
-        raise AssertionError(f"posterior off: est {est} exact {post}")
-    if abs(np.mean(lmls) - exact_lml) >= 0.2:
-        raise AssertionError(f"LML {np.mean(lmls)} vs exact {exact_lml}")
-    print(f"[4 posterior] 4 seeds: P(moving@t) max |est-exact| "
-          f"{float(np.max(np.abs(est - post))):.4f} (limit 6*stderr+0.03), "
-          f"mean LML {np.mean(lmls):.4f} vs exact {exact_lml:.4f}")
+    _posterior_check(_filter("systematic"), y_obs, N_MAIN, "4")
     return launches
+
+
+def _path(label, run, need):
+    """Run ``run()`` with every launch count at 0; every kernel in ``need``
+    must have launched. Returns (result, counts)."""
+    _reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = _counts()
+    missing = [k for k in need if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"path {label} never launched {missing}")
+    print(f"[{label}] launches {_short(counts)}")
+    return out, counts
+
+
+def phase_paths(y_obs):
+    """Paths (a)-(e); returns the launch counts of each."""
+    G1, G2, G4 = KERNELS
+    seen = {}
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa
+    st, seen["4a"] = _path(
+        "4a residual N=100K",
+        lambda: _filter("residual")(gen(100), y_obs, N_MAIN), (G1, G2))
+    _posterior_check(_filter("residual"), y_obs, N_MAIN, "4a")
+    _, seen["4b"] = _path(
+        "4b residual N=100",
+        lambda: _filter("residual")(gen(101), y_obs, N_SMALL), (G1, G2))
+    # N=100 over few seeds: the Monte Carlo error dominates, so the stderr
+    # terms widen (16 seeds, 8 stderrs, and LML stderrs); the 0.03 stays
+    _posterior_check(_filter("residual"), y_obs, N_SMALL, "4b", seeds=16,
+                     k_se=8.0, lml_se=True)
+    for method in ("multinomial", "stratified (unsorted)"):
+        _, seen[f"4c {method}"] = _path(
+            f"4c {method} N=100K",
+            lambda: _filter(method)(gen(102), y_obs, N_MAIN), (G2,))
+        _posterior_check(_filter(method), y_obs, N_MAIN, "4c")
+    seen["4d"] = _substate_path(st)
+    _resample_sync_check(st)
+    seen["4e"] = _lg_path()
+    return seen
+
+
+def _synced(fn):
+    """(fn's result, the synchronizing CUDA calls flagged while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = fn()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, [f"{w.filename}:{w.lineno}" for w in rec
+                 if "synchroniz" in str(w.message)]
+
+
+def _resample_sync_check(state):
+    """No resample of a state or sub-state waits for the device: the
+    flagged synchronizing calls of one pf_resample must be none."""
+    import genparticlefilters_tpu_torch as g
+    gen = torch.Generator(device="cuda").manual_seed(600)
+    cases = [(m, state) for m in ("multinomial", "residual", "stratified",
+                                  "systematic")]
+    cases += [(m, state[0:N_MAIN // 2]) for m in ("multinomial",
+                                                  "residual")]
+    for method, s in cases:
+        _, syncs = _synced(lambda: g.pf_resample(gen, s, method,
+                                                 check=False))
+        if syncs:
+            raise AssertionError(f"pf_resample {method} on {s!r} synced the "
+                                 f"host: {syncs}")
+    print(f"[4d syncs] pf_resample of the N={N_MAIN} state (4 methods) and "
+          f"of a half (multinomial, residual): no synchronizing CUDA call "
+          f"flagged (torch.cuda.set_sync_debug_mode)")
+
+
+def _substate_path(state):
+    """Sub-state resampling of the two halves of a N=100K filter state."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.core.batching import tree_take
+    from genparticlefilters_tpu_torch.core.tree import tree_leaves
+    G4 = list(KERNELS)[2]
+    half = N_MAIN // 2
+    lml0 = float(g.log_ml_estimate(state))
+    total = {k: 0 for k in KERNELS}
+    for method in ("multinomial", "residual"):
+        def run():
+            s = state
+            errs = []
+            for i, blk in enumerate((slice(0, half), slice(half, N_MAIN))):
+                sub_lml = float(g.log_ml_estimate(s[blk]))
+                s = g.pf_resample(torch.Generator(device="cuda").manual_seed(
+                    500 + i), s[blk], method, check=False)
+                errs.append(abs(float(g.log_ml_estimate(s[blk])) - sub_lml))
+                par = s.parents[blk]
+                if int(par.min()) < blk.start or int(par.max()) >= blk.stop:
+                    raise AssertionError(f"4d {method}: parents leave "
+                                         f"block {blk}")
+            return s, errs
+        (s, errs), counts = _path(f"4d sub-states {method}", run, (G4,))
+        for k in total:
+            total[k] += counts[k]
+        glob = abs(float(g.log_ml_estimate(s)) - lml0)
+        if max(errs) >= 1e-3 or glob >= 1e-3:
+            raise AssertionError(f"4d {method}: block LML moved {errs}, "
+                                 f"global {glob}")
+        gathered = tree_take(state.traces, s.parents)
+        if not all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(gathered), tree_leaves(s.traces))
+                if isinstance(a, torch.Tensor)):
+            raise AssertionError(f"4d {method}: ancestry broken")
+        print(f"[4d {method}] two halves of N={N_MAIN}: block LML moved "
+              f"{max(errs):.2e}, global {glob:.2e} (limit 1e-3); parents "
+              f"inside their block; traces == old traces[parents]")
+    return total
+
+
+def _lg_path():
+    """The linear-Gaussian filter (BASELINE config 2) against the Kalman
+    filter, with the tolerances of tests/test_models.py."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.linear_gaussian import (
+        LGParams, synthesize_lg_data, kalman_filter, lgssm_particle_filter)
+    p, T, n = LGParams(), 8, 10_000
+    y = synthesize_lg_data(torch.Generator(device="cuda").manual_seed(0), T,
+                           p)
+    mus, vars_, lml_exact = kalman_filter(y.cpu().numpy(), p)
+    sd = math.sqrt(float(vars_[-1]))
+    total = {k: 0 for k in KERNELS}
+    for method in ("systematic", "stratified"):
+        def run():
+            return [lgssm_particle_filter(
+                torch.Generator(device="cuda").manual_seed(10 + s), y, n, T,
+                p, method) for s in range(4)]
+        sts, counts = _path(f"4e linear-Gaussian {method}", run, ())
+        for k in total:
+            total[k] += counts[k]
+        est = np.mean([float(g.mean(s, (T - 1, "x"))) for s in sts[:3]])
+        lml = np.mean([float(g.log_ml_estimate(s)) for s in sts[:3]])
+        var = float(g.var(sts[3], (T - 1, "x")))
+        if (abs(est - mus[-1]) >= 0.05 * sd + 0.02
+                or abs(lml - lml_exact) >= 0.05
+                or abs(var - vars_[-1]) >= 0.2 * vars_[-1]):
+            raise AssertionError(f"4e {method}: mean {est} vs {mus[-1]}, "
+                                 f"LML {lml} vs {lml_exact}, var {var} vs "
+                                 f"{vars_[-1]}")
+        print(f"[4e {method}] N={n} T={T}: filtering mean {est:.4f} vs "
+              f"Kalman {mus[-1]:.4f} (limit {0.05 * sd + 0.02:.4f}), LML "
+              f"{lml:.4f} vs {lml_exact:.4f} (limit 0.05), var {var:.4f} vs "
+              f"{vars_[-1]:.4f} (rtol 0.2)")
+    return total
 
 
 def _event_ms(fn, reps):
@@ -218,23 +577,14 @@ def _queued_ms(fn, calls=20):
     return a.elapsed_time(b) / calls
 
 
-def _gather_timing(n, card):
-    from genparticlefilters_tpu_torch.ops.fused_gather import (
-        resample_gather_split, resample_gather_split_plain)
-    from genparticlefilters_tpu_torch.smc.resample import systematic_F
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    pieces = [torch.randint(-2**31, 2**31 - 1, (w, n), generator=gen,
-                            device=dev, dtype=torch.int32) for w in WIDTHS]
-    F = systematic_F(gen, _weights("dirichlet", n, dev, gen))
-    kern = lambda: resample_gather_split(pieces, F)          # noqa: E731
-    plain = lambda: resample_gather_split_plain(pieces, F)   # noqa: E731
+def _compare_timing(label, kern, plain, card, mbytes=None):
+    """Kernel against plain, in turns (plain, kernel, kernel, plain)."""
     for _ in range(3):
         kern()
         plain()
     torch.cuda.synchronize()
     k_call, p_call, k_dev, p_dev = [], [], [], []
-    for _ in range(6):   # in turns: plain, kernel, kernel, plain
+    for _ in range(6):
         p_call += _event_ms(plain, 2)
         k_call += _event_ms(kern, 4)
         p_call += _event_ms(plain, 2)
@@ -243,27 +593,53 @@ def _gather_timing(n, card):
         k_dev.append(_queued_ms(kern))
         p_dev.append(_queued_ms(plain))
     med = statistics.median
-    gbytes = 2 * sum(WIDTHS) * 4 * n / 1e9
-    print(f"[5 G1] N={n} widths={WIDTHS}: device time per call (20 queued "
-          f"calls, median of {len(k_dev)}) kernel {med(k_dev):.4f} ms "
-          f"({gbytes / (med(k_dev) / 1e3):.0f} GB/s of {gbytes * 1e3:.1f} MB)"
-          f", plain {med(p_dev):.4f} ms; one call with the host in the "
-          f"loop (median of {len(k_call)}) kernel {med(k_call):.4f} ms, "
-          f"plain {med(p_call):.4f} ms; card {card}")
+    rate = (f" ({mbytes / 1e3 / (med(k_dev) / 1e3):.0f} GB/s of "
+            f"{mbytes:.1f} MB)" if mbytes else "")
+    print(f"[5 {label}: device time per call (20 queued calls, median of "
+          f"{len(k_dev)}) kernel {med(k_dev):.4f} ms{rate}, plain "
+          f"{med(p_dev):.4f} ms; one call with the host in the loop (median "
+          f"of {len(k_call)}) kernel {med(k_call):.4f} ms, plain "
+          f"{med(p_call):.4f} ms; card {card}")
     return med(k_dev), med(p_dev)
 
 
-def _profile_filter(y_obs, n, per_run, card):
+def _kernel_timing(n, card):
+    """Device ms of (kernel, plain) for G1, G2 and G4 at n particles."""
+    from genparticlefilters_tpu_torch.ops.fused_gather import (
+        resample_gather_split, resample_gather_split_plain,
+        resample_gather_split_u, resample_gather_split_u_plain)
+    from genparticlefilters_tpu_torch.ops.merge_count import (
+        merge_count, merge_count_plain)
+    from genparticlefilters_tpu_torch.smc.resample import systematic_F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pieces = _pieces(WIDTHS, n, dev, gen)
+    mb = 2 * sum(WIDTHS) * 4 * n / 1e6
+    F = systematic_F(gen, _weights("dirichlet", n, dev, gen))
+    c, u = _brackets(n, n, "plain", dev, gen)
+    G1, G2, G4 = KERNELS
+    return {
+        G1: _compare_timing(
+            f"G1] N={n} widths={WIDTHS}",
+            lambda: resample_gather_split(pieces, F),
+            lambda: resample_gather_split_plain(pieces, F), card, mb),
+        G2: _compare_timing(
+            f"G2] N={n} widths={WIDTHS}",
+            lambda: resample_gather_split_u(pieces, c, u),
+            lambda: resample_gather_split_u_plain(pieces, c, u), card, mb),
+        G4: _compare_timing(
+            f"G4] n=m={n}", lambda: merge_count(c, u),
+            lambda: merge_count_plain(c, u), card)}
+
+
+def _profile_filter(run, y_obs, n, per_run, label, card):
     """Where a filter run's time goes: device busy time by kernel and host
     time by phase span (om.* record_function spans), from torch.profiler."""
     from torch.profiler import profile, ProfilerActivity
-    from genparticlefilters_tpu_torch.models.object_motion import (
-        object_motion_filter)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(400)
+    gen = torch.Generator(device="cuda").manual_seed(400)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        object_motion_filter(gen, y_obs, n, T_MAIN)
+        run(gen, y_obs, n)
         torch.cuda.synchronize()
     ka = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
@@ -271,16 +647,17 @@ def _profile_filter(y_obs, n, per_run, card):
             if e.device_type == cuda and not e.key.startswith("om.")]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if busy_ms <= 0:
-        print(f"[5 profile] N={n}: the profiler showed no device time; "
-              f"device busy share not measured")
+        print(f"[5 profile] {label} N={n}: the profiler showed no device "
+              f"time; device busy share not measured")
         return
     n_kern = sum(e.count for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     tops = "; ".join(f"{e.key[:40]} x{e.count} "
                      f"{e.self_device_time_total / 1e3:.3f} ms" for e in top)
-    print(f"[5 profile] N={n}: {n_kern} kernels, device busy {busy_ms:.3f} "
-          f"ms of {per_run * 1e3:.3f} ms/run unprofiled (idle share "
-          f"{max(0.0, 1 - busy_ms / (per_run * 1e3)):.3f}); top: {tops}")
+    print(f"[5 profile] {label} N={n}: {n_kern} kernels, device busy "
+          f"{busy_ms:.3f} ms of {per_run * 1e3:.3f} ms/run unprofiled (idle "
+          f"share {max(0.0, 1 - busy_ms / (per_run * 1e3)):.3f}); top: "
+          f"{tops}")
     phases = []
     for e in sorted((e for e in ka if e.key.startswith("om.")),
                     key=lambda e: (e.key, e.device_type != cuda)):
@@ -288,36 +665,53 @@ def _profile_filter(y_obs, n, per_run, card):
                      if e.device_type == cuda else
                      ("host", e.cpu_time_total))
         phases.append(f"{e.key} x{e.count} {where} {ms / 1e3:.2f} ms")
-    print(f"[5 profile] N={n} by phase (profiled run): {'; '.join(phases)}"
-          f"; card {card}")
+    print(f"[5 profile] {label} N={n} by phase (profiled run): "
+          f"{'; '.join(phases)}; card {card}")
 
 
-def phase_timing(card):
-    from genparticlefilters_tpu_torch.models.object_motion import (
-        synthesize_data, object_motion_filter)
-    k_ms, p_ms = _gather_timing(N_MAIN, card)
-    _gather_timing(1_000_000, card)
+def _sync_count(run, y_obs, n):
+    """Synchronizing CUDA calls during one run, as
+    torch.cuda.set_sync_debug_mode flags them: (total, the lines of the
+    package that made the most)."""
+    _, syncs = _synced(lambda: run(
+        torch.Generator(device="cuda").manual_seed(401), y_obs, n))
+    where = collections.Counter(
+        w.split("genparticlefilters_tpu_torch/")[-1] for w in syncs)
+    return len(syncs), where.most_common(6)
+
+
+def phase_timing(y_obs, card):
+    kern_ms = _kernel_timing(N_MAIN, card)
+    _kernel_timing(1_000_000, card)
     dev = torch.device("cuda")
-    y_obs, _ = synthesize_data(torch.Generator(device=dev).manual_seed(42),
-                               T_MAIN, SWITCH)
-    filt = {}
+    methods = ("systematic", "residual", "multinomial")
     for n in (N_MAIN, 1_000_000):
-        runs = []
-        for s in range(6):
-            g2 = torch.Generator(device=dev).manual_seed(300 + s)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            object_motion_filter(g2, y_obs, n, T_MAIN)
-            torch.cuda.synchronize()
-            runs.append(time.perf_counter() - t0)
-        per_run = statistics.median(runs[1:])   # first run warms up
-        filt[n] = per_run
-        print(f"[5 filter] N={n} T={T_MAIN}: {per_run * 1e3:.3f} ms/run "
-              f"(median of {len(runs) - 1} after a warm-up; min "
-              f"{min(runs[1:]) * 1e3:.3f}, max {max(runs[1:]) * 1e3:.3f}), "
-              f"{n * T_MAIN / per_run:,.0f} particle-updates/s; card {card}")
-        _profile_filter(y_obs, n, per_run, card)
-    return k_ms, p_ms, filt
+        runs = {m: [] for m in methods}
+        for s in range(6):           # the methods in turns, run by run
+            for method in methods:
+                g2 = torch.Generator(device=dev).manual_seed(300 + s)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _filter(method)(g2, y_obs, n)
+                torch.cuda.synchronize()
+                runs[method].append(time.perf_counter() - t0)
+        for method in methods:
+            r = runs[method][1:]             # the first run warms up
+            per_run = statistics.median(r)
+            print(f"[5 filter] {method} N={n} T={T_MAIN}: "
+                  f"{per_run * 1e3:.3f} ms/run (median of {len(r)} after a "
+                  f"warm-up, methods in turns; min {min(r) * 1e3:.3f}, max "
+                  f"{max(r) * 1e3:.3f}), {n * T_MAIN / per_run:,.0f} "
+                  f"particle-updates/s; card {card}")
+            if method != "multinomial":
+                _profile_filter(_filter(method), y_obs, n, per_run, method,
+                                card)
+    for method in methods:
+        total, top = _sync_count(_filter(method), y_obs, N_MAIN)
+        print(f"[5 syncs] {method} N={N_MAIN}: {total} synchronizing CUDA "
+              f"calls in one run (torch.cuda.set_sync_debug_mode); most: "
+              f"{top}")
+    return kern_ms
 
 
 def main():
@@ -325,12 +719,19 @@ def main():
     card = _card_line()
     phase_build()
     max_err = phase_kernel_vs_plain()
-    launches = phase_main_path()
-    k_ms, p_ms, _ = phase_timing(card)
+    y_obs = _data()
+    g1_launches = phase_main_path(y_obs)
+    seen = phase_paths(y_obs)
+    kern_ms = phase_timing(y_obs, card)
+    G1, G2, G4 = KERNELS
+    launches = {G1: g1_launches,
+                G2: seen["4a"][G2],
+                G4: seen["4d"][G4]}
     print(json.dumps({"kernels": [{
-        "name": "stairs_gather (G1)", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": launches[name], "max_abs_err": max_err[name],
+        "ms": kern_ms[name][0], "plain_ms": kern_ms[name][1]}
+        for name, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,16 @@ genparticlefilters_tpu (Sequential Monte Carlo for Gen-style models).
 
 The JAX package beside it is the reference each part is held against.
 This package imports ``torch`` and never ``jax``. Ported so far: the
-object-motion filter's main path (batched interpretation, packed Unfold
-storage, systematic resampling through the G1 CUDA gather, windowed MH
-rejuvenation, Extend updates).
+object-motion and linear-Gaussian filters (batched interpretation, packed
+Unfold storage, windowed MH rejuvenation, Extend updates), multinomial,
+residual, stratified and systematic resampling of states and sub-state
+views, and the CUDA kernels G1 and G2 (fused resampling gathers) and G4
+(merge count).
 """
 
 from .core import *  # noqa: F401,F403
 from .smc import *  # noqa: F401,F403
-from .ops import resample_gather_split, resample_gather_split_plain  # noqa
+from .ops import (resample_gather_split, resample_gather_split_plain,  # noqa
+                  resample_gather_split_u, resample_gather_split_u_plain,
+                  merge_count, merge_count_plain)
 from .utils.weights import logsumexp, safe_softmax  # noqa: F401

@@ -7,6 +7,9 @@ packed step storage time-major (``mat [T*R, N]``, particle axis 1) and its
 active length ``t`` shared (spec ``None``); per-particle scores and carries
 sit at axis 0. :func:`axes_spec` gathers those specs for a whole tree.
 
+:func:`tree_take` and :func:`tree_put` gather and scatter a whole tree
+along each leaf's particle axis (sub-state views, smc/state.py).
+
 Only the batched form is ported; the per-particle (vmapped) form waits.
 """
 
@@ -15,9 +18,10 @@ from __future__ import annotations
 import torch
 
 from .gfi import Trace
-from .tree import tree_map
+from .tree import tree_map, tree_flatten, tree_unflatten, flatten_up_to
 
-__all__ = ["axes_spec", "gen_spec", "const_spec", "spec_n"]
+__all__ = ["axes_spec", "gen_spec", "const_spec", "spec_n",
+           "flatten_with_axes", "tree_take", "tree_put"]
 
 
 def _leaf_axis(x, axis, n=None):
@@ -64,3 +68,38 @@ def axes_spec(obj, axis: int = 0):
         lambda x: (x.gen_fn.trace_axes(x, axis, args_shared=True)
                    if isinstance(x, Trace) else axis),
         obj, is_leaf=lambda x: isinstance(x, Trace))
+
+
+def flatten_with_axes(tree):
+    """(leaves, per-leaf particle axis, treedef) of any tree that may
+    contain traces."""
+    leaves, treedef = tree_flatten(tree)
+    return leaves, flatten_up_to(treedef, axes_spec(tree)), treedef
+
+
+def _batched(leaf, ax) -> bool:
+    return (ax is not None and isinstance(leaf, torch.Tensor)
+            and leaf.dim() > ax)
+
+
+def tree_take(tree, idx):
+    """Gather ``leaf[..., idx, ...]`` along each leaf's particle axis.
+    Leaves shared across particles pass through untouched."""
+    leaves, axes, treedef = flatten_with_axes(tree)
+    idx = torch.as_tensor(idx).long()
+    return tree_unflatten(treedef, [
+        torch.index_select(l, ax, idx.to(l.device)) if _batched(l, ax) else l
+        for l, ax in zip(leaves, axes)])
+
+
+def tree_put(full, block, idx):
+    """``full`` with ``block`` written at particle indices ``idx`` along
+    each leaf's particle axis, out of place: ``full`` is not modified."""
+    leaves, axes, treedef = flatten_with_axes(full)
+    blocks = tree_flatten(block)[0]
+    if len(blocks) != len(leaves):
+        raise ValueError("tree_put: block and full differ in structure")
+    idx = torch.as_tensor(idx).long()
+    return tree_unflatten(treedef, [
+        f.index_copy(ax, idx.to(f.device), b) if _batched(f, ax) else f
+        for f, ax, b in zip(leaves, axes, blocks)])

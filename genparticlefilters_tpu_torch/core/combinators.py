@@ -421,6 +421,14 @@ class Unfold(GenFn):
             out[k] = Entry(e.value, m)
         return ChoiceMap(out)
 
+    def retval_axes(self, tr: Trace, axis: int = 0):
+        """Particle-axis spec of the materialized stacked retval
+        ``[T, N, ...]`` (time-major: the particle axis follows time). It
+        materializes the retval to read its shapes: a cold path."""
+        from .batching import gen_spec, spec_n
+        return gen_spec(self.trace_retval(tr), axis + 1,
+                        spec_n(tr.score, axis))
+
     def trace_choice_axes(self, tr: Trace, axis: int = 0):
         steps = unpack_tree(tr.inner["store"])["steps"]
         return self.step.trace_choice_axes(steps, axis + 1)

@@ -150,6 +150,10 @@ class GenFn:
     def trace_retval(self, tr: Trace):
         return tr.retval
 
+    def retval_axes(self, tr: Trace, axis: int = 0):
+        """Particle-axis spec of the materialized ``get_retval()``."""
+        return self.trace_axes(tr, axis).retval
+
     def trace_choices(self, tr: Trace) -> ChoiceMap:
         raise NotImplementedError
 

@@ -2,8 +2,9 @@
 still or moving sinusoidally; the filter infers position ``y`` and the
 ``moving`` flag from noisy observations ``y_obs``.
 
-The filter runs init, then per step an ESS check, systematic resampling
-plus windowed MH rejuvenation when ESS is low, and a one-step ``Extend``
+The filter runs init, then per step an ESS check, resampling (residual
+by default, as in the JAX package) plus windowed MH rejuvenation when ESS
+is low, and a one-step ``Extend``
 update. The ESS check is a Python ``if`` on a device scalar: one host
 synchronisation per step.
 """
@@ -81,7 +82,7 @@ def synthesize_data(gen, t_max: int, switch_t: int):
 
 def object_motion_filter(gen, y_obs, n_particles: int, t_max: int,
                          ess_frac: float = 0.5,
-                         resample_method: str = "systematic", device=None):
+                         resample_method: str = "residual", device=None):
     """The README particle filter: resampling + MH rejuvenation when
     ESS < ess_frac·N, then a one-step extension update. Runs on ``device``
     (default: the device of ``gen``), drawing every random number from

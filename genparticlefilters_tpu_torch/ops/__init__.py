@@ -1,3 +1,8 @@
-from .fused_gather import resample_gather_split, resample_gather_split_plain
+from .fused_gather import (resample_gather_split, resample_gather_split_plain,
+                           resample_gather_split_u,
+                           resample_gather_split_u_plain)
+from .merge_count import merge_count, merge_count_plain
 
-__all__ = ["resample_gather_split", "resample_gather_split_plain"]
+__all__ = ["resample_gather_split", "resample_gather_split_plain",
+           "resample_gather_split_u", "resample_gather_split_u_plain",
+           "merge_count", "merge_count_plain"]

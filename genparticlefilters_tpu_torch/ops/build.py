@@ -4,8 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. At
 first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 under ``genparticlefilters_tpu_torch/_build/`` (git-ignored), named by a
 hash of the source so an edited source rebuilds, and loaded with
-``ctypes``. Nothing here runs at import time; a missing ``nvcc`` or a
-failed compile raises.
+``ctypes``. :func:`load_libraries` runs one ``nvcc`` per source, all at
+once. Nothing here runs at import time; a missing ``nvcc`` or a failed
+compile raises.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load_library", "build_info", "NVCC_FLAGS"]
+__all__ = ["load_library", "load_libraries", "build_info", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -70,14 +72,22 @@ def load_library(name: str, bind) -> ctypes.CDLL:
     """The loaded ``ctypes`` library of ``csrc/<name>.cu``, building it at
     first use. ``bind(lib)`` sets every function's ``argtypes`` and
     ``restype`` once, right after loading."""
-    hit = _LOADED.get(name)
-    if hit is not None:
-        return hit[0]
-    record = _compile(name)
-    lib = ctypes.CDLL(record["library"])
-    bind(lib)
-    _LOADED[name] = (lib, record)
-    return lib
+    return load_libraries({name: bind})[name]
+
+
+def load_libraries(binds: dict) -> dict:
+    """``{name: library}`` for ``binds`` (``{name: bind}``, as for
+    :func:`load_library`). The libraries not yet loaded are compiled side
+    by side, one ``nvcc`` process each, before any is loaded."""
+    todo = [name for name in binds if name not in _LOADED]
+    if todo:
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            records = list(pool.map(_compile, todo))
+        for name, record in zip(todo, records):
+            lib = ctypes.CDLL(record["library"])
+            binds[name](lib)
+            _LOADED[name] = (lib, record)
+    return {name: _LOADED[name][0] for name in binds}
 
 
 def build_info(name: str) -> dict:

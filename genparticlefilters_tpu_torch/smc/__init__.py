@@ -1,14 +1,22 @@
-from .state import (ParticleFilterState, pf_state, effective_sample_size,
-                    log_ml_estimate, get_norm_weights,
-                    batched_choice)
-from .resample import pf_resample, pf_systematic_resample, systematic_F
-from .initialize import pf_initialize
-from .update import pf_update
-from .rejuvenate import mh, pf_rejuvenate, pf_move_accept
-from .statistics import mean
+from . import state as _state
+from . import initialize as _initialize
+from . import update as _update
+from . import resample as _resample
+from . import rejuvenate as _rejuvenate
+from . import statistics as _statistics
+from . import algorithms as _algorithms
 
-__all__ = ["ParticleFilterState", "pf_state", "effective_sample_size",
-           "log_ml_estimate", "get_norm_weights",
-           "batched_choice", "pf_resample", "pf_systematic_resample",
-           "systematic_F", "pf_initialize", "pf_update", "mh",
-           "pf_rejuvenate", "pf_move_accept", "mean"]
+from .state import *  # noqa: F401,F403
+from .initialize import *  # noqa: F401,F403
+from .update import *  # noqa: F401,F403
+from .resample import *  # noqa: F401,F403
+from .rejuvenate import *  # noqa: F401,F403
+from .statistics import *  # noqa: F401,F403
+from .algorithms import *  # noqa: F401,F403
+from ..utils.weights import lognorm, softmax, safe_softmax  # noqa: F401
+
+__all__ = (
+    _state.__all__ + _initialize.__all__ + _update.__all__
+    + _resample.__all__ + _rejuvenate.__all__ + _statistics.__all__
+    + _algorithms.__all__ + ["lognorm", "softmax", "safe_softmax"]
+)

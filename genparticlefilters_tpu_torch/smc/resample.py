@@ -1,30 +1,50 @@
-"""Resampling: the systematic path.
+"""Resampling: multinomial, residual, stratified and systematic.
 
-Systematic resampling draws one shared uniform ``u0`` and turns the
-normalized weights into pinned cumulative hit counts
-``F_i = ⌊n·cumsum(w)_i − u0⌋ + 1`` (``F[-1] = n_out``, monotone by a
-``cummax``). The fused gather G1 (ops/fused_gather.py) turns F into
-parents and moves every packable trace leaf in one pass. The LML estimate
-is folded before resampling, and full-state weights reset to zero (or to
-the weight/priority ratio summing to n).
+Each method draws its random numbers from ``gen``, unless the caller
+passes them through a keyword: ``e``, the ``[n_out + 1]`` exponentials of
+multinomial and residual (their sorted uniforms are cumulative exponential
+spacings, no sort); ``v``, the ``[n_out]`` uniforms of stratified; ``u0``,
+the systematic uniform. The arithmetic after the draws follows the JAX
+package operation for operation, every guard kept: the ``cummax`` on the
+float32 cumsums that feed brackets, ``u >= 1e-37``, ``rc >= 1e-30`` and the
+1.5/1.75 padding of residual's unused uniforms.
 
-The other methods (multinomial, residual, stratified) and sub-states wait
-for later slices.
+A full state is resampled by one fused gather of every packable trace
+leaf:
+
+- systematic: pinned cumulative hit counts F -> G1 (``resample_gather_split``);
+- multinomial and unsorted stratified: float brackets ``(c, u)`` -> G2
+  (``resample_gather_split_u``);
+- residual: ⌊n·w⌋ deterministic copies plus the remainder count G from G2
+  with zero pieces and the roles swapped (``residual_F_fused``) -> F -> G1.
+
+Sorted stratified/systematic (``sort_particles=True``) and every sub-state
+take explicit parents and a plain ``index_select`` per packed piece; the
+multinomial and residual parents come from the merge count G4
+(``ops/merge_count.py``). Full states fold the LML before resampling and
+reset the weights to zero (or to the weight/priority ratio summing to n);
+sub-states keep the block's total weight, never touch the LML and record
+global parents.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.batching import axes_spec
-from ..core.tree import tree_flatten, tree_unflatten, flatten_up_to
-from ..ops.fused_gather import resample_gather_split
+from ..core.batching import flatten_with_axes
+from ..core.tree import tree_unflatten
+from ..ops.fused_gather import resample_gather_split, resample_gather_split_u
+from ..ops.merge_count import merge_count
 from ..utils.weights import (safe_softmax, apply_check, logsumexp,
                              log_float32)
-from .state import ParticleFilterState
+from .state import ParticleFilterState, ParticleFilterSubState
 
-__all__ = ["pf_resample", "pf_systematic_resample", "systematic_F",
-           "counts_to_parents"]
+__all__ = ["pf_resample", "pf_multinomial_resample", "pf_residual_resample",
+           "pf_stratified_resample", "pf_systematic_resample",
+           "multinomial_parents", "residual_parents", "stratified_parents",
+           "systematic_parents", "stratified_F", "systematic_F",
+           "multinomial_F", "residual_F", "multinomial_cu",
+           "stratified_cu", "residual_F_fused", "counts_to_parents"]
 
 
 def counts_to_parents(counts, n_out: int):
@@ -47,10 +67,79 @@ def _pinned_F(cdf_hits, n_out: int):
     """Monotone cumulative hit counts with total pinned to n_out. ``F_i`` =
     number of output slots with parent <= i; output j's parent is
     ``#{i : F_i <= j}``. The cummax keeps F monotone where a float32
-    cumsum is not (parallel scans reassociate)."""
+    cumsum is not (parallel scans reassociate). The pin is a fill kernel:
+    assigning a Python int would copy it from the host and sync."""
     F = torch.clamp(cdf_hits, 0, n_out)
-    F[-1] = n_out
-    return torch.cummax(F, 0).values
+    F[-1:].fill_(n_out)
+    return _cummax(F)
+
+
+def _cummax(x):
+    return torch.cummax(x, 0).values
+
+
+def _normalized(c):
+    """``c / max(c[-1], 1e-37)``: cumulative weights scaled to end at 1."""
+    return c / torch.clamp_min(c[-1], 1e-37)
+
+
+def _draws(x, shape, device, draw):
+    """The caller's draws ``x`` as float32 on ``device``, or ``draw()``."""
+    if x is None:
+        return draw()
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if tuple(x.shape) != shape:
+        raise ValueError(f"draws of shape {tuple(x.shape)}, expected "
+                         f"{shape}")
+    return x
+
+
+def _uniforms(gen, n: int, device, v=None):
+    """``[n]`` Uniform(0, 1) draws from ``gen`` (or ``v``)."""
+    return _draws(v, (n,), device, lambda: torch.rand(
+        (n,), generator=gen, dtype=torch.float32, device=device))
+
+
+def _sorted_uniforms_cum(gen, n: int, device, e=None):
+    """Cumulative exponential spacings ``ce [n+1]`` from ``n + 1``
+    Exponential(1) draws (or ``e``): the order statistics of n uniforms
+    are ``ce[j] / ce[n]`` for j < n, with no sort. The cummax keeps them
+    non-decreasing where a reassociating float32 scan is not."""
+    e = _draws(e, (n + 1,), device, lambda: torch.empty(
+        (n + 1,), dtype=torch.float32, device=device).exponential_(
+            generator=gen))
+    return _cummax(torch.cumsum(e, 0))
+
+
+def stratified_F(gen, weights, n_out: int | None = None, v=None):
+    """Pinned cumulative hit counts for stratified resampling: one uniform
+    ``v_j`` per stratum [j/n, (j+1)/n);
+    F_i = ⌊c_i⌋ + [v_⌊c_i⌋ <= c_i − ⌊c_i⌋] with c_i = n·cumsum(w)_i."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    v = _uniforms(gen, n_out, weights.device, v)
+    return _stratified_hits(n_out * torch.cumsum(weights, 0), v, n_out)
+
+
+def _stratified_hits(c, v, n_out: int):
+    """Pinned stratified hit counts from ``c = n·cumsum(w)`` and the
+    per-stratum uniforms ``v``: one gather instead of a search."""
+    m = torch.floor(c).to(torch.int32)
+    mc = torch.clamp(m, 0, n_out - 1).long()
+    frac_hit = (v[mc] <= c - m.to(torch.float32)) & (m < n_out)
+    F = torch.clamp(m, 0, n_out) + frac_hit.to(torch.int32)
+    return _pinned_F(F, n_out)
+
+
+def stratified_cu(gen, weights, n_out: int | None = None, v=None):
+    """Float brackets for the fused stratified gather: normalized
+    cumulative weights ``c`` and the per-stratum queries
+    ``u_j = (j + v_j)/n``, ascending by construction."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    v = _uniforms(gen, n_out, weights.device, v)
+    u = (torch.arange(n_out, dtype=torch.float32, device=weights.device)
+         + v) / n_out
+    u = torch.clamp_min(u, 1e-37)  # u = 0 would match no bracket
+    return _normalized(_cummax(torch.cumsum(weights, 0))), u
 
 
 def systematic_F(gen, weights, n_out: int | None = None, u0=None):
@@ -58,13 +147,87 @@ def systematic_F(gen, weights, n_out: int | None = None, u0=None):
     uniform ``u0`` (drawn from ``gen`` unless given);
     F_i = ⌊n·cumsum(w)_i − u0⌋ + 1."""
     n_out = weights.shape[0] if n_out is None else int(n_out)
-    if u0 is None:
-        u0 = torch.rand((), generator=gen, dtype=torch.float32,
-                        device=weights.device)
-    else:
-        u0 = torch.as_tensor(u0, dtype=torch.float32, device=weights.device)
+    u0 = _draws(u0, (), weights.device, lambda: torch.rand(
+        (), generator=gen, dtype=torch.float32, device=weights.device))
     c = n_out * torch.cumsum(weights, 0) - u0
     return _pinned_F(torch.floor(c).to(torch.int32) + 1, n_out)
+
+
+def multinomial_cu(gen, weights, n_out: int | None = None, e=None):
+    """Float brackets for the fused multinomial gather: normalized
+    cumulative weights ``c [N]`` and ascending sorted uniforms
+    ``u [n_out]``. Output slot j's parent is the unique s with
+    ``c[s-1] < u_j <= c[s]``, evaluated inside G2."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
+    # an exact-zero first uniform would match no bracket
+    u = torch.clamp_min(ce[:-1] / ce[-1], 1e-37)
+    return _normalized(_cummax(torch.cumsum(weights, 0))), u
+
+
+def multinomial_F(gen, weights, n_out: int | None = None, e=None):
+    """Pinned cumulative hit counts for multinomial resampling, sort-free:
+    sorted uniforms from exponential spacings, then
+    ``F_i = #{j : u_j <= cumw_i}`` by the merge count G4. Clustered
+    (non-decreasing) parents, the same offspring law as iid draws."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
+    u = ce[:-1] / ce[-1]
+    F = merge_count(_normalized(torch.cumsum(weights, 0)), u)
+    return _pinned_F(F, n_out)
+
+
+def _residual_split(weights, n_out: int):
+    """(⌊n·w⌋ int32, remainder draw count R as a device scalar, residual
+    fractions)."""
+    scaled = n_out * weights
+    det = torch.floor(scaled).to(torch.int32)
+    n_res = n_out - torch.sum(det)
+    return det, n_res, scaled - det.to(weights.dtype)
+
+
+def _residual_u(ce, n_res, n_out: int):
+    """The first R sorted uniforms ``ce[j] / ce[R]``, capped at 1.5; the
+    unused slots padded with 1.75, above every real value and below 2.0
+    (G4's contract). ``ce[R]`` is read with ``index_select``: indexing with
+    a device scalar would sync the host."""
+    denom = torch.index_select(ce, 0, torch.clamp(n_res, 0, n_out).reshape(1))
+    j = torch.arange(n_out, device=ce.device)
+    return torch.where(j < n_res, torch.clamp_max(ce[:-1] / denom, 1.5),
+                       1.75)
+
+
+def residual_F(gen, weights, n_out: int | None = None, e=None):
+    """Pinned cumulative hit counts for residual resampling, sort-free:
+    ⌊n·w⌋ deterministic offspring per particle plus merge counts (G4) of
+    exactly R = n − Σ⌊n·w⌋ sorted uniforms on the residual fractions. An
+    exact float32 tie u == rc counts to the left bin here and to the right
+    bin in :func:`residual_F_fused`: both are valid realizations of the
+    same law."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    det, n_res, resid = _residual_split(weights, n_out)
+    rcum = torch.cumsum(resid, 0)
+    ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
+    u = _residual_u(ce, n_res, n_out)
+    F_res = merge_count(_normalized(rcum), u)
+    return _pinned_F(torch.cumsum(det, 0, dtype=torch.int32) + F_res, n_out)
+
+
+def residual_F_fused(gen, weights, n_out: int | None = None, e=None):
+    """Residual cumulative hit counts with no merge: ``F = cumsum(det) + G``
+    where the remainder counts ``G_i = #{u < rc_i}`` come from one G2 pass
+    with zero pieces and the roles swapped — brackets are the sorted
+    residual uniforms, queries the normalized residual cumsum, and the
+    parents G2 returns ARE G."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    det, n_res, resid = _residual_split(weights, n_out)
+    rc = _normalized(_cummax(torch.cumsum(resid, 0)))
+    # a query of exactly 0.0 (zero-residual prefix) would match no bracket
+    rc = torch.clamp_min(rc, 1e-30)
+    ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
+    u = _residual_u(ce, n_res, n_out)
+    _, G = resample_gather_split_u([], u, rc)
+    return _pinned_F(torch.cumsum(det, 0, dtype=torch.int32) + G, n_out)
 
 
 def _F_to_parents(F, n_out: int):
@@ -73,15 +236,52 @@ def _F_to_parents(F, n_out: int):
     return counts_to_parents(F - prev, n_out)
 
 
+def multinomial_parents(gen, weights, n_out: int | None = None, e=None):
+    """Multinomial ancestors in clustered (non-decreasing) order, from
+    :func:`multinomial_F`."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    return _F_to_parents(multinomial_F(gen, weights, n_out, e=e), n_out)
+
+
+def residual_parents(gen, weights, n_out: int | None = None, e=None):
+    """Residual ancestors in clustered order, from :func:`residual_F`."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    return _F_to_parents(residual_F(gen, weights, n_out, e=e), n_out)
+
+
+def _by_weight(F_fn, weights, n_out, log_priorities, sort_particles):
+    """Parents from ``F_fn(w)``, optionally with the particles first sorted
+    by weight (or priority), descending and stable."""
+    n_out = weights.shape[0] if n_out is None else int(n_out)
+    if not sort_particles:
+        return _F_to_parents(F_fn(weights, n_out), n_out)
+    key = weights if log_priorities is None else log_priorities
+    order = torch.argsort(-key, stable=True)
+    parents = _F_to_parents(F_fn(weights[order], n_out), n_out)
+    return order[parents.long()].to(torch.int32)
+
+
+def stratified_parents(gen, weights, n_out: int | None = None,
+                       log_priorities=None, sort_particles: bool = True,
+                       v=None):
+    """One uniform per stratum [j/n, (j+1)/n), by default after sorting
+    the particles by weight, descending."""
+    return _by_weight(lambda w, m: stratified_F(gen, w, m, v=v), weights,
+                      n_out, log_priorities, sort_particles)
+
+
+def systematic_parents(gen, weights, n_out: int | None = None,
+                       log_priorities=None, sort_particles: bool = False,
+                       u0=None):
+    """One shared uniform offset across all strata, optionally after
+    sorting the particles by weight, descending."""
+    return _by_weight(lambda w, m: systematic_F(gen, w, m, u0=u0), weights,
+                      n_out, log_priorities, sort_particles)
+
+
 # ---------------------------------------------------------------------------
 # State-level resampling
 # ---------------------------------------------------------------------------
-
-def _flatten_with_axes(traces):
-    """(leaves, per-leaf particle axis, treedef)."""
-    leaves, treedef = tree_flatten(traces)
-    return leaves, flatten_up_to(treedef, axes_spec(traces)), treedef
-
 
 def _pack_rows(leaves, axes):
     """Pack gatherable 4-byte leaves into ``[w, N]`` int32 row blocks,
@@ -149,18 +349,38 @@ def _unpack_split(outs, leaves, meta, parents, n):
     return out_leaves
 
 
-def _gather_traces_from_F(traces, F, n_out: int | None = None):
-    """Fused resampling gather from cumulative hit counts: the packable
-    leaves go to G1 as pieces, read in place, one gathered output per
-    piece. Returns ``(new_traces, parents)``."""
-    leaves, axes, treedef = _flatten_with_axes(traces)
-    n_src = F.shape[0]
-    m = n_src if n_out is None else int(n_out)
+def _gather_pieces(traces, gather):
+    """Pack the packable leaves of ``traces`` into ``[w, N]`` pieces, let
+    ``gather(pieces)`` return ``(outs, parents)`` — one gathered output per
+    piece — and rebuild the traces. Returns ``(new_traces, parents)``."""
+    leaves, axes, treedef = flatten_with_axes(traces)
     rows, meta = _pack_rows(leaves, axes)
-    pieces = [r for r in rows if r is not None]
-    outs, parents = resample_gather_split(pieces, F, n_out=m)
-    out_leaves = _unpack_split(outs, leaves, meta, parents, m)
+    outs, parents = gather([r for r in rows if r is not None])
+    out_leaves = _unpack_split(outs, leaves, meta, parents,
+                               parents.shape[0])
     return tree_unflatten(treedef, out_leaves), parents
+
+
+def _gather_traces_from_F(traces, F, n_out: int | None = None):
+    """Fused resampling gather from cumulative hit counts (G1, pieces read
+    in place). Returns ``(new_traces, parents)``."""
+    return _gather_pieces(
+        traces, lambda pieces: resample_gather_split(pieces, F, n_out=n_out))
+
+
+def _gather_traces_from_cu(traces, c, u):
+    """Fused resampling gather from float brackets (G2, pieces read in
+    place). Returns ``(new_traces, parents)``."""
+    return _gather_pieces(
+        traces, lambda pieces: resample_gather_split_u(pieces, c, u))
+
+
+def _gather_traces(traces, parents):
+    """Ancestry gather ``traces[parents]`` from explicit parents, one
+    ``index_select`` per piece."""
+    idx = parents.long()
+    return _gather_pieces(traces, lambda pieces: (
+        [torch.index_select(p, 1, idx) for p in pieces], parents))[0]
 
 
 def _new_weights_full(n, log_weights, log_priorities, parents, custom):
@@ -173,15 +393,47 @@ def _new_weights_full(n, log_weights, log_priorities, parents, custom):
     return lw + (log_float32(n, lw.device) - logsumexp(lw))
 
 
-def _resample_impl(gen, state, F_fn, priority_fn, check):
+def _new_weights_sub(n, log_weights, log_priorities, parents, custom):
+    """Post-resample weights of a sub-state: the block's total weight is
+    kept."""
+    if not custom:
+        avg = logsumexp(log_weights) - log_float32(n, log_weights.device)
+        return avg.expand(n).clone()
+    idx = parents.long()
+    lw = log_weights[idx] - log_priorities[idx]
+    return lw + (logsumexp(log_weights) - logsumexp(lw))
+
+
+def _resample_impl(gen, state, parent_fn, priority_fn, check, F_fn=None,
+                   cu_fn=None):
+    """Full states take the fused gather of ``cu_fn`` (G2) or ``F_fn``
+    (G1) when the method has one; sub-states and the sorted methods take
+    ``parent_fn``'s explicit parents."""
+    is_sub = isinstance(state, ParticleFilterSubState)
     log_weights = state.log_weights
     n = state.n_particles
     custom = priority_fn is not None
     log_priorities = priority_fn(log_weights) if custom else log_weights
     weights, invalid = safe_softmax(log_priorities)
     apply_check(invalid, check)
-    new_traces, parents = _gather_traces_from_F(state.traces,
-                                                F_fn(gen, weights))
+    traces = state.traces
+    if not is_sub and cu_fn is not None:
+        new_traces, parents = _gather_traces_from_cu(traces,
+                                                     *cu_fn(gen, weights))
+    elif not is_sub and F_fn is not None:
+        new_traces, parents = _gather_traces_from_F(traces,
+                                                    F_fn(gen, weights))
+    else:
+        parents = parent_fn(gen, weights, log_priorities)
+        new_traces = _gather_traces(traces, parents)
+    if is_sub:
+        new_lw = _new_weights_sub(n, log_weights, log_priorities, parents,
+                                  custom)
+        # sub-states never touch the LML; parents are recorded as global
+        # indices so the full state's ancestry holds
+        return state.scatter(
+            traces=new_traces, log_weights=new_lw,
+            parents=torch.index_select(state.idxs, 0, parents.long()))
     # fold the LML before resampling
     new_lml = (state.log_ml_est + logsumexp(log_weights)
                - log_float32(n, log_weights.device))
@@ -190,25 +442,60 @@ def _resample_impl(gen, state, F_fn, priority_fn, check):
     return ParticleFilterState(new_traces, new_lw, new_lml, parents)
 
 
-def pf_systematic_resample(gen, state, priority_fn=None, check="warn",
-                          u0=None):
-    """Systematic resampling of a full state. ``u0`` fixes the shared
-    uniform (otherwise drawn from ``gen``)."""
+def pf_multinomial_resample(gen, state, priority_fn=None, check="warn",
+                            e=None):
+    """Multinomial resampling of a state or sub-state. ``e`` fixes the
+    ``[n + 1]`` exponential draws (otherwise drawn from ``gen``)."""
     return _resample_impl(
-        gen, state, lambda g, w: systematic_F(g, w, u0=u0), priority_fn,
-        check)
+        gen, state, lambda g, w, lp: multinomial_parents(g, w, e=e),
+        priority_fn, check, cu_fn=lambda g, w: multinomial_cu(g, w, e=e))
 
 
-_METHODS = {"systematic": pf_systematic_resample}
-_LATER = ("multinomial", "residual", "stratified")
+def pf_residual_resample(gen, state, priority_fn=None, check="warn", e=None):
+    """Residual resampling of a state or sub-state. ``e`` fixes the
+    ``[n + 1]`` exponential draws (otherwise drawn from ``gen``)."""
+    return _resample_impl(
+        gen, state, lambda g, w, lp: residual_parents(g, w, e=e),
+        priority_fn, check, F_fn=lambda g, w: residual_F_fused(g, w, e=e))
 
 
-def pf_resample(gen, state, method: str = "systematic", **kwargs):
-    """Dispatch by method name. Only ``"systematic"`` is ported."""
+def pf_stratified_resample(gen, state, priority_fn=None, check="warn",
+                           sort_particles: bool = True, v=None):
+    """Stratified resampling of a state or sub-state. ``v`` fixes the
+    ``[n]`` per-stratum uniforms (otherwise drawn from ``gen``)."""
+    return _resample_impl(
+        gen, state,
+        lambda g, w, lp: stratified_parents(
+            g, w, log_priorities=lp, sort_particles=sort_particles, v=v),
+        priority_fn, check,
+        cu_fn=(None if sort_particles
+               else lambda g, w: stratified_cu(g, w, v=v)))
+
+
+def pf_systematic_resample(gen, state, priority_fn=None, check="warn",
+                           sort_particles: bool = False, u0=None):
+    """Systematic resampling of a state or sub-state. ``u0`` fixes the
+    shared uniform (otherwise drawn from ``gen``)."""
+    return _resample_impl(
+        gen, state,
+        lambda g, w, lp: systematic_parents(
+            g, w, log_priorities=lp, sort_particles=sort_particles, u0=u0),
+        priority_fn, check,
+        F_fn=(None if sort_particles
+              else lambda g, w: systematic_F(g, w, u0=u0)))
+
+
+_METHODS = {
+    "multinomial": pf_multinomial_resample,
+    "residual": pf_residual_resample,
+    "stratified": pf_stratified_resample,
+    "systematic": pf_systematic_resample,
+}
+
+
+def pf_resample(gen, state, method: str = "multinomial", **kwargs):
+    """Dispatch by method name."""
     fn = _METHODS.get(method)
     if fn is None:
-        if method in _LATER:
-            raise NotImplementedError(
-                f"resampling method {method!r} is not ported yet")
         raise ValueError(f"Resampling method {method!r} not recognized.")
     return fn(gen, state, **kwargs)

@@ -21,9 +21,10 @@ def logsumexp(x):
 
 def log_float32(n, device):
     """``log(n)`` computed in float32 on ``device``, as the JAX package
-    computes ``jnp.log(float(n))`` with 64-bit mode off."""
-    return torch.log(torch.tensor(float(n), dtype=torch.float32,
-                                  device=device))
+    computes ``jnp.log(float(n))`` with 64-bit mode off. ``n`` enters by a
+    fill kernel, not a host-to-device copy (which would sync)."""
+    return torch.log(torch.full((), float(n), dtype=torch.float32,
+                                device=device))
 
 
 def lognorm(vs):

@@ -8,9 +8,14 @@ it) against the JAX package.
     constrained to the same numpy values. mat, carry and parents must be
     bit-equal after every round; scores, log weights and the LML agree to
     atol 1e-4 (float32 sin/log ulps accumulate over the steps).
+(a') The same chain with residual resampling, JAX's exponentials fed
+    through the port's ``e`` seam. Hit counts may differ only at float32
+    ties (a query within 1e-5 relative of a bracket edge, in float64), in
+    under 0.5% of the particles; every other slot is bit-equal.
 (b) The MH pieces that take no randomness: the windowed forced pass and
     the accept-masked delta write.
-(c) The port's own filter against exact enumeration of the posterior.
+(c) The port's own filter against exact enumeration of the posterior, for
+    its default method (residual) and each method by name.
 """
 
 import numpy as np
@@ -129,6 +134,75 @@ def test_chain_parity_resample_and_extend():
                                float(jg.log_ml_estimate(jst)), atol=1e-4)
 
 
+def _hit_counts(parents, n):
+    return np.searchsorted(np.asarray(parents), np.arange(n), side="right")
+
+
+def _residual_ties(lw, e, n, rel=1e-5):
+    """Per particle, in float64 from JAX's log weights and exponentials:
+    does a residual draw lie within ``rel`` of its residual-cumsum edge?"""
+    lw = np.asarray(lw, np.float64)
+    w32 = np.asarray(jnp.exp(lw - lw.max()) / jnp.sum(jnp.exp(lw - lw.max()))
+                     ).astype(np.float32)
+    scaled = (n * w32).astype(np.float32)
+    det = np.floor(scaled)
+    r64 = np.cumsum(scaled.astype(np.float64) - det)
+    r64 /= r64[-1]
+    k = n - int(det.sum())
+    ce = np.cumsum(np.asarray(e, np.float64))
+    u = np.sort(ce[:k] / ce[k])
+    pos = np.searchsorted(u, r64)
+    d = np.minimum(np.abs(r64 - u[np.clip(pos - 1, 0, k - 1)]),
+                   np.abs(r64 - u[np.clip(pos, 0, k - 1)]))
+    return d <= rel * r64
+
+
+def test_chain_parity_residual_resample_and_extend():
+    y_obs, jst, tst, tx0, tobs = _start(seed=2)
+    rng = np.random.default_rng(8)
+    tmodel = tom.make_object_motion(T)
+    for t in range(1, T):
+        key = jr.key(2000 + t)
+        e = np.array(jr.exponential(key, (N + 1,), jnp.float32))
+        # the float32 log weights agree only to 1e-4, and a 1e-5 change of
+        # one weight can move a floor(N·w) and with it every later
+        # residual draw: the resample reads JAX's weights bit for bit
+        tst = tst.replace(log_weights=torch.from_numpy(
+            np.array(jst.log_weights)))
+        tie = _residual_ties(jst.log_weights, e, N)
+        jst = jg.pf_resample(key, jst, "residual", check=False)
+        tst = tg.pf_resample(torch.Generator(), tst, "residual",
+                             check=False, e=e)
+        jF = _hit_counts(jst.parents, N)
+        tF = _hit_counts(tst.parents.numpy(), N)
+        bad = np.nonzero(jF != tF)[0]
+        assert np.all(tie[bad]) and len(bad) <= 0.005 * N, bad
+        same = np.asarray(jst.parents) == tst.parents.numpy()
+        np.testing.assert_array_equal(
+            tst.traces.inner["store"].mat.numpy()[:, same],
+            np.asarray(jst.traces.inner["store"].mat)[:, same])
+        if not same.all():   # continue the chain from JAX's ancestry
+            tst = state_from_numpy(tmodel, _leaves(jst), (1, tx0), tobs)
+        _assert_states_match(jst, tst)
+
+        mvf, yf = _step_values(rng, np.array(jst.traces.inner["carry"][0]),
+                               t)
+        jcm = jg.ChoiceMap({**jom.obs_dense(y_obs).entries,
+                            ("moving",): jg.Entry(jnp.asarray(mvf), True),
+                            ("y",): jg.Entry(jnp.asarray(yf), True)})
+        tcm = tg.ChoiceMap({**tobs.entries,
+                            ("moving",): tg.Entry(torch.from_numpy(mvf),
+                                                  True),
+                            ("y",): tg.Entry(torch.from_numpy(yf), True)})
+        with use_check_batched_layout(False):
+            jst = jg.pf_update(jr.key(t), jst, (t + 1, jom.init_state()),
+                               (jg.Extend(1), jg.NoChange()), jcm,
+                               check=False)
+        tst = tg.pf_update(torch.Generator(), tst, (t + 1, tx0),
+                           (tg.Extend(1), tg.NoChange()), tcm, check=False)
+        _assert_states_match(jst, tst)
+
+
 def _window_selection(lib, t_now, arange):
     steps = arange(T)
     m = (steps == t_now - 2) | (steps == t_now - 1)
@@ -214,6 +288,26 @@ def test_filter_matches_exact_posterior():
         st = tom.object_motion_filter(torch.Generator().manual_seed(100 + s),
                                       y_obs, 1500, T6)
         assert st.traces.inner["t"] == T6
+        res.append([float(tg.mean(st, (t, "moving"))) for t in range(T6)])
+        lmls.append(float(tg.log_ml_estimate(st)))
+    res = np.array(res)
+    est = res.mean(0)
+    stderr = res.std(0) / np.sqrt(len(res)) + 1e-3
+    assert np.all(np.abs(est - post) < 6 * stderr + 0.03), (est, post)
+    assert abs(np.mean(lmls) - lml) < 0.2, (np.mean(lmls), lml)
+
+
+@pytest.mark.parametrize("method", ["residual", "multinomial", "stratified",
+                                    "systematic"])
+def test_filter_matches_exact_posterior_by_method(method):
+    T6 = 6
+    y_obs, _ = tom.synthesize_data(torch.Generator().manual_seed(42), T6, 3)
+    post, lml = tom.exact_posterior(y_obs.numpy())
+    res, lmls = [], []
+    for s in range(4):
+        st = tom.object_motion_filter(torch.Generator().manual_seed(300 + s),
+                                      y_obs, 1500, T6,
+                                      resample_method=method)
         res.append([float(tg.mean(st, (t, "moving"))) for t in range(T6)])
         lmls.append(float(tg.log_ml_estimate(st)))
     res = np.array(res)

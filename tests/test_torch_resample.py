@@ -122,7 +122,8 @@ def test_F_monotone_on_degenerate_weights():
 
 
 def test_pf_resample_dispatch():
-    with pytest.raises(NotImplementedError):
-        tres.pf_resample(None, None, "residual")
+    assert set(tres._METHODS) == {"multinomial", "residual", "stratified",
+                                  "systematic"}
+    assert tres._METHODS["residual"] is tres.pf_residual_resample
     with pytest.raises(ValueError):
         tres.pf_resample(None, None, "nonsense")
