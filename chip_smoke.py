@@ -7,10 +7,11 @@ non-zero and no result line is printed):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card;
 2. build: compile the kernels for sm_90a, one nvcc per source, side by
-   side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu) and G4
-   (csrc/merge_count.cu);
+   side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu), G3
+   (csrc/gather_parents.cu) and G4 (csrc/merge_count.cu);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, bit-equal at the main-path shapes and the edge shapes;
+   card, bit-equal at the main-path shapes and the edge shapes (G1 and G2
+   also at a 1026-row pack);
 4. main path: the object-motion filter at N=100K, T=10, systematic
    resampling, on cuda — G1's launch count must rise during the run — then
    the posterior against exact enumeration over 4 seeds;
@@ -22,17 +23,29 @@ non-zero and no result line is printed):
    the N=100K state, multinomial and residual (G4), with the block-LML,
    global-LML and block-ancestry checks; (e) the linear-Gaussian filter
    at N=10K, T=8, systematic and stratified, against the Kalman filter;
+4f-4i. config 5, multi-object tracking (K=4 objects): (f) N=1M, T=10 on
+   the resize schedule of scripts/config45_bench.py (systematic
+   resampling, residual resize to N/2, multinomial resize back to N), then
+   optimal resize to N/4, replicate x4 and dereplicate, with the posterior
+   and LML checks (G1, G2, G3); (g) the wide-pack route, T=64 (1025 packed
+   rows), multinomial at N=100K (G2) and systematic at N=1000 (G1);
+   (h) blockwise resampling of the (f) state in 4 blocks, every method,
+   then block rotation and shuffle (G1, G2, G3); (i) the data-association
+   model at N=100K, K=3, T=5, associations recovered;
 5. timing: each kernel against its plain version (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
    in the loop) at N=100K and N=1M; the whole filter per run at N=100K and
    N=1M for systematic, residual and multinomial resampling; the host
-   syncs of one run; and a torch.profiler breakdown of the systematic and
-   residual runs (device busy time by kernel, host time by phase).
+   syncs of one run (at most 9, the ESS checks); a torch.profiler
+   breakdown of the systematic and residual runs (device busy time by
+   kernel, host time by phase); and for config 5 the run time, each resize
+   verb's time, the host syncs of one run and a profiler breakdown.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, a JSON line lists each kernel with its launches on
-the path that exercises it ((4) for G1, (4a) for G2, (4d) for G4), its
-largest error against the plain version and its device time at N=100K.
+the path that exercises it ((4) for G1, (4a) for G2, (4f) for G3, (4d)
+for G4), its largest error against the plain version and its device time
+at N=100K.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -53,6 +66,12 @@ N_MAIN, T_MAIN, SWITCH = 100_000, 10, 5
 N_SMALL = 100                   # the README's config-1 particle count
 WIDTHS = (1, 1, 1, 40)          # the main path's pieces: score, carry y,
 #                                 carry moving, packed step store mat
+N_C5, T_C5 = 1_000_000, 10      # config 5 at its published size
+WIDTHS_C5 = (1, 160)            # its pieces: score, mat (16 rows per step)
+T_WIDE = 64                     # 16*64 + 1 = 1025 packed rows: past the
+#                                 TPU lane kernels' 1022-row cap
+SPANS = ("om.", "c5.")          # profiler span prefixes of the filter runs
+MAX_SYNCS = 9                   # per object-motion run: the 9 ESS checks
 CSRC = "genparticlefilters_tpu_torch/csrc/"
 TPU = "genparticlefilters_tpu/ops/"
 # name -> (source, the TPU kernel it replaces)
@@ -62,6 +81,11 @@ KERNELS = {
     "stairs_gather_u (G2)": (CSRC + "stairs_gather_u.cu",
                              TPU + "fused_gather.py:710 (is_float=True), "
                              + TPU + "fused_gather.py:196"),
+    "gather_parents (G3)": (CSRC + "gather_parents.cu",
+                            TPU + "fused_gather.py:250, "
+                            + TPU + "fused_gather.py:1014, "
+                            + TPU + "gather.py:30, "
+                            + TPU + "sorted_gather.py:38"),
     "merge_count (G4)": (CSRC + "merge_count.cu", TPU + "merge_count.py:41"),
 }
 
@@ -81,21 +105,27 @@ def _card_line():
 
 
 def _wrappers():
-    """Kernel name -> its wrapper (each carries a ``launches`` count)."""
+    """Kernel name -> its wrappers (each carries a ``launches`` count; G3
+    has one per mode)."""
     from genparticlefilters_tpu_torch.ops.fused_gather import (
         resample_gather_split, resample_gather_split_u)
+    from genparticlefilters_tpu_torch.ops.gather import (gather_cols,
+                                                         gather_rows)
     from genparticlefilters_tpu_torch.ops.merge_count import merge_count
-    return dict(zip(KERNELS, (resample_gather_split, resample_gather_split_u,
-                              merge_count)))
+    return dict(zip(KERNELS, ((resample_gather_split,),
+                              (resample_gather_split_u,),
+                              (gather_cols, gather_rows), (merge_count,))))
 
 
 def _reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fns in _wrappers().values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in _wrappers().items()}
 
 
 def _short(counts):
@@ -122,23 +152,19 @@ def phase_environment():
 
 
 def phase_build():
-    from genparticlefilters_tpu_torch.ops import fused_gather as fg
-    from genparticlefilters_tpu_torch.ops.merge_count import (
-        _LIB as mc_lib, _bind as mc_bind)
-    from genparticlefilters_tpu_torch.ops.build import (load_libraries,
-                                                        build_info)
+    from genparticlefilters_tpu_torch.ops.build import load_all, build_info
     t0 = time.perf_counter()
-    load_libraries({fg._LIB: fg._bind, fg._LIB_U: fg._bind_u,
-                    mc_lib: mc_bind})
+    libs = load_all()
     wall = time.perf_counter() - t0
-    for lib in (fg._LIB, fg._LIB_U, mc_lib):
+    for lib in libs:
         info = build_info(lib)
         ptxas = " | ".join(l.strip() for l in info["ptxas"].splitlines()
                            if "registers" in l or "spill" in l)
         print(f"[2 build] {info['source']} -> sm_90a in "
               f"{info['seconds']:.2f} s (cached={info['cached']}); "
               f"ptxas: {ptxas}")
-    print(f"[2 build] three kernels built side by side in {wall:.2f} s")
+    print(f"[2 build] {len(libs)} kernels built side by side in "
+          f"{wall:.2f} s")
 
 
 def _weights(kind, n, dev, gen):
@@ -177,7 +203,8 @@ def _check_G1(dev, gen):
              (2048, 1024, (40, 1, 7), "dirichlet"),
              (600, 1200, (40, 1, 7), "dirichlet"),
              (1000, 1000, (40, 1, 7), "dirichlet"),
-             (900, 900, (5,), "degenerate")]
+             (900, 900, (5,), "degenerate"),
+             (N_MAIN, N_MAIN, (1, 16 * T_WIDE + 1), "dirichlet")]
     max_err = 0
     for n, m, widths, kind in cases:
         pieces = _pieces(widths, n, dev, gen)
@@ -233,6 +260,7 @@ def _check_G2(dev, gen):
              (N_SMALL, N_SMALL, WIDTHS, "plain"),
              (2048, 1024, (40, 1, 7), "plain"),
              (1000, 2000, (40, 1, 7), "plain"),
+             (N_MAIN, N_MAIN, (1, 16 * T_WIDE + 1), "plain"),
              (N_MAIN, N_MAIN, (), "residual count"),
              (4096, 4096, (9, 1), "zero_u"),
              (4096, 4096, (9, 1), "short_c")]
@@ -284,13 +312,79 @@ def _check_G4(dev, gen):
     return max_err
 
 
+def _extreme_pieces(n, dev):
+    """One row per extreme int32 bit pattern (0, -1, the int32 limits,
+    small and 16-bit values, a float32 NaN, -0.0 and infinities)."""
+    vals = [0, -1, 2**31 - 1, -2**31, 12345, -12345, 65536, -65536,
+            0x7FC00000, 0x7F800000, -0x00800000]
+    col = torch.tensor(vals, dtype=torch.int64).to(torch.int32)
+    return [col[:, None].expand(len(vals), n).contiguous().to(dev)]
+
+
+def _check_G3(dev, gen):
+    from genparticlefilters_tpu_torch.ops.gather import (
+        gather_cols, gather_cols_plain, gather_rows, gather_rows_plain)
+    from genparticlefilters_tpu_torch.smc.resample import (
+        systematic_F, _F_to_parents)
+
+    def clustered(n, m):
+        F = systematic_F(gen, _weights("dirichlet", n, dev, gen), n_out=m)
+        return _F_to_parents(F, m)
+
+    def perm(n):
+        return torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+
+    def rows(widths, n):
+        return [torch.randint(-2**31, 2**31 - 1, (n, w), generator=gen,
+                              device=dev, dtype=torch.int32) for w in widths]
+    n_wide = 16 * T_WIDE + 2
+    cases = [  # (label, mode, pieces, parents)
+        ("config-5 widths, clustered parents (systematic)", "cols",
+         lambda: _pieces(WIDTHS_C5, N_C5, dev, gen),
+         lambda: clustered(N_C5, N_C5)),
+        ("arbitrary permutation", "cols",
+         lambda: _pieces(WIDTHS_C5, N_MAIN, dev, gen), lambda: perm(N_MAIN)),
+        ("all parents equal", "cols", lambda: _pieces((5, 1), 4096, dev, gen),
+         lambda: torch.full((4096,), 4095, dtype=torch.int32, device=dev)),
+        ("M = N/4", "cols", lambda: _pieces((40, 1, 7), 4096, dev, gen),
+         lambda: clustered(4096, 1024)),
+        ("M = 4N", "cols", lambda: _pieces((40, 1, 7), 1024, dev, gen),
+         lambda: clustered(1024, 4096)),
+        (f"width {n_wide}", "cols", lambda: _pieces((n_wide,), 8192, dev,
+                                                      gen),
+         lambda: clustered(8192, 8192)),
+        ("extreme bit patterns", "cols", lambda: _extreme_pieces(4096, dev),
+         lambda: perm(4096)),
+        ("row mode [N, 8]", "rows", lambda: rows((8,), N_MAIN),
+         lambda: perm(N_MAIN)),
+        ("row mode [N, 1], clustered", "rows", lambda: rows((1,), N_MAIN),
+         lambda: clustered(N_MAIN, N_MAIN)),
+    ]
+    max_err = 0
+    for label, mode, make_pieces, make_parents in cases:
+        pieces, parents = make_pieces(), make_parents()
+        kern, plain = ((gather_cols, gather_cols_plain) if mode == "cols"
+                       else (gather_rows, gather_rows_plain))
+        outs = kern(pieces, parents)
+        torch.cuda.synchronize()
+        refs = plain(pieces, parents)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _max_err(outs, refs))
+        if not all(torch.equal(o, r) for o, r in zip(outs, refs)):
+            raise AssertionError(f"G3 differs: {label}")
+        print(f"[3 G3] {mode} {label}: pieces "
+              f"{[tuple(p.shape) for p in pieces]}, M={parents.shape[0]}: "
+              f"bit-equal to plain")
+    return max_err
+
+
 def phase_kernel_vs_plain():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.manual_seed(0)
     names = list(KERNELS)
     return dict(zip(names, (_check_G1(dev, gen), _check_G2(dev, gen),
-                            _check_G4(dev, gen))))
+                            _check_G3(dev, gen), _check_G4(dev, gen))))
 
 
 def _data():
@@ -412,7 +506,7 @@ def _path(label, run, need):
 
 def phase_paths(y_obs):
     """Paths (a)-(e); returns the launch counts of each."""
-    G1, G2, G4 = KERNELS
+    G1, G2, G3, G4 = KERNELS
     seen = {}
     gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa
     st, seen["4a"] = _path(
@@ -434,6 +528,8 @@ def phase_paths(y_obs):
     seen["4d"] = _substate_path(st)
     _resample_sync_check(st)
     seen["4e"] = _lg_path()
+    del st
+    seen.update(_config5_paths())
     return seen
 
 
@@ -475,7 +571,7 @@ def _substate_path(state):
     import genparticlefilters_tpu_torch as g
     from genparticlefilters_tpu_torch.core.batching import tree_take
     from genparticlefilters_tpu_torch.core.tree import tree_leaves
-    G4 = list(KERNELS)[2]
+    G4 = list(KERNELS)[3]
     half = N_MAIN // 2
     lml0 = float(g.log_ml_estimate(state))
     total = {k: 0 for k in KERNELS}
@@ -547,6 +643,237 @@ def _lg_path():
     return total
 
 
+def _mot_data(t_max, seed=5):
+    from genparticlefilters_tpu_torch.models.multi_object import (
+        MOTParams, synthesize_mot_data)
+    return synthesize_mot_data(torch.Generator(device="cuda").manual_seed(
+        seed), t_max, MOTParams())
+
+
+def _c5_run(gen, y, n, t_max=T_C5, lmls=None):
+    """Config 5 on the resize schedule of scripts/config45_bench.py:
+    systematic resampling when ESS < n_now/2 and one-step extensions, a
+    residual resize to n/2 before step T//3 and a multinomial resize back
+    to n before step 2T//3. With ``lmls`` (a list), each resize appends
+    ``(label, LML before, LML after)`` (host reads: check runs only)."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.multi_object import (
+        MOTParams, make_mot_model, mot_obs_dense)
+    from torch.profiler import record_function
+    p = MOTParams()
+    x0 = torch.zeros((p.n_objects, 2), dtype=torch.float32, device="cuda")
+    obs = mot_obs_dense(y)
+    with record_function("c5.initialize"):
+        st = g.pf_initialize(gen, make_mot_model(t_max, p), (1, x0), obs, n)
+    n_now = n
+    for t in range(1, t_max):
+        for when, method, size in ((t_max // 3, "residual", n // 2),
+                                   (2 * t_max // 3, "multinomial", n)):
+            if t == when:
+                before = st
+                with record_function("c5.resize"):
+                    st = g.pf_resize(gen, st, size, method, check=False)
+                n_now = size
+                if lmls is not None:
+                    lmls.append((f"{method} {before.n_particles}->{size}",
+                                 float(g.log_ml_estimate(before)),
+                                 float(g.log_ml_estimate(st))))
+        with record_function("c5.ess_check"):
+            low = bool(g.effective_sample_size(st) < 0.5 * n_now)
+        if low:
+            with record_function("c5.resample"):
+                st = g.pf_resample(gen, st, "systematic", check=False)
+        with record_function("c5.update"):
+            st = g.pf_update(gen, st, (t + 1, x0),
+                             (g.Extend(1), g.NoChange()), obs, check=False)
+    return st
+
+
+def _mot_posterior_check(label, st, y, t_max):
+    """The posterior mean of every object's position at the last step lies
+    within 3 observation sds of the last observation."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.multi_object import MOTParams
+    r = MOTParams().r
+    x_mean = g.mean(st, (t_max - 1, "x"))
+    err = float((x_mean - y[t_max - 1]).abs().max())
+    if not (math.isfinite(err) and err < 3 * r):
+        raise AssertionError(f"{label}: posterior mean {x_mean} vs last "
+                             f"observation {y[t_max - 1]}")
+    return err
+
+
+def _ancestry_ok(old, new):
+    from genparticlefilters_tpu_torch.core.batching import tree_take
+    from genparticlefilters_tpu_torch.core.tree import tree_leaves
+    return all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(tree_take(old.traces, new.parents)),
+        tree_leaves(new.traces)) if isinstance(a, torch.Tensor))
+
+
+def _config5_path(y):
+    """(f): config 5 at N=1M on the resize schedule, then optimal resize to
+    N/4, replicate x4 and dereplicate; returns the filter's final state."""
+    import genparticlefilters_tpu_torch as g
+    G1, G2, G3, _ = KERNELS
+    gen = torch.Generator(device="cuda").manual_seed(500)
+    lmls = []
+
+    def run():
+        st = _c5_run(gen, y, N_C5, lmls=lmls)
+        opt = g.pf_resize(gen, st, N_C5 // 4, "optimal", check=False)
+        rep = g.pf_replicate(opt, 4)
+        der = g.pf_dereplicate(gen, rep, 4, method="keepfirst")
+        return st, opt, rep, der
+    (st, opt, rep, der), counts = _path(f"4f config 5 N={N_C5}", run, ())
+    need = {G1: 1, G2: 2, G3: 3}
+    if any(counts[k] < v for k, v in need.items()):
+        raise AssertionError(f"4f launches {counts}, need at least {need}")
+    err = _mot_posterior_check("4f", st, y, T_C5)
+    lml = float(g.log_ml_estimate(st))
+    lmls.append((f"optimal {N_C5}->{N_C5 // 4}", lml,
+                 float(g.log_ml_estimate(opt))))
+    bad = [x for x in lmls if abs(x[1] - x[2]) >= 1e-3]
+    if bad:
+        raise AssertionError(f"4f: a resize moved the LML: {bad}")
+    lml_opt = g.log_ml_estimate(opt)
+    lml_rep = g.log_ml_estimate(rep)
+    if not torch.equal(g.log_ml_estimate(der), lml_opt) or not torch.equal(
+            der.log_weights, opt.log_weights):
+        raise AssertionError("4f: dereplicate(replicate(s)) changed the "
+                             "weights or the LML")
+    if abs(float(lml_rep) - float(lml_opt)) >= 1e-5 * abs(float(lml_opt)):
+        raise AssertionError(f"4f: replicate moved the LML: {lml_rep} vs "
+                             f"{lml_opt}")
+    if torch.unique(opt.parents).numel() != N_C5 // 4:
+        raise AssertionError("4f: optimal-resize parents are not unique")
+    if not (_ancestry_ok(st, opt) and _ancestry_ok(opt, rep)
+            and _ancestry_ok(rep, der)):
+        raise AssertionError("4f: traces != old traces[parents]")
+    print(f"[4f config 5] N={N_C5} T={T_C5} K=4: posterior mean max "
+          f"|x - y_last| {err:.4f} (limit 3r = 1.5); LML before -> after "
+          f"each resize {[(a, round(b, 5), round(c, 5)) for a, b, c in lmls]}"
+          f" (limit 1e-3); replicate LML {float(lml_rep):.6f} vs "
+          f"{float(lml_opt):.6f} (rtol 1e-5), dereplicate(keepfirst) "
+          f"restores weights and LML bit for bit; optimal-resize parents "
+          f"unique; traces == old traces[parents] after every verb")
+    return st, counts
+
+
+def _wide_pack_path():
+    """(g): T=64, 1025 packed rows: multinomial at N=100K (G2 over the wide
+    pieces) and systematic at N=1000 (G1)."""
+    from genparticlefilters_tpu_torch.models.multi_object import (
+        MOTParams, mot_particle_filter)
+    G1, G2, _, _ = KERNELS
+    y = _mot_data(T_WIDE, seed=6)
+    total = {k: 0 for k in KERNELS}
+    for method, n, need in (("multinomial", N_MAIN, G2),
+                            ("systematic", 1000, G1)):
+        st, counts = _path(
+            f"4g wide pack T={T_WIDE} {method} N={n}",
+            lambda: mot_particle_filter(
+                torch.Generator(device="cuda").manual_seed(501), y, n,
+                T_WIDE, MOTParams(), resample_method=method), (need,))
+        for k in total:
+            total[k] += counts[k]
+        rows = 1 + st.traces.inner["store"].mat.shape[0]
+        err = _mot_posterior_check("4g", st, y, T_WIDE)
+        print(f"[4g {method} N={n}] {rows} packed rows (past 1022); "
+              f"posterior mean max |x - y_last| {err:.4f} (limit 1.5)")
+    return total
+
+
+def _blockwise_path(state):
+    """(h): blockwise resampling of the config-5 state in 4 blocks, then
+    block rotation and shuffle."""
+    import genparticlefilters_tpu_torch as g
+    G1, G2, G3, _ = KERNELS
+    K = 4
+    n = state.n_particles
+    b = n // K
+    lml0 = g.log_ml_estimate(state)
+    tot0 = torch.logsumexp(state.log_weights.reshape(K, b), 1)
+    total = {k: 0 for k in KERNELS}
+    gen = torch.Generator(device="cuda").manual_seed(502)
+    cases = [("systematic", None, G1), ("residual", None, G1),
+             ("multinomial", None, G2), ("stratified", False, G2),
+             ("stratified", True, G3)]
+    for method, sort, need in cases:
+        label = method + ("" if sort is None else
+                          " sorted" if sort else " unsorted")
+        out, counts = _path(
+            f"4h blockwise {label} K={K}",
+            lambda: g.pf_resample_blockwise(gen, state, K, method,
+                                            sort_particles=sort), (need,))
+        for k in total:
+            total[k] += counts[k]
+        moved = float((torch.logsumexp(out.log_weights.reshape(K, b), 1)
+                       - tot0).abs().max())
+        blk = out.parents.reshape(K, b).long() // b
+        inside = bool((blk == torch.arange(K, device="cuda")[:, None]).all())
+        if (moved >= 1e-3 or not inside
+                or not torch.equal(out.log_ml_est, state.log_ml_est)
+                or not _ancestry_ok(state, out)):
+            raise AssertionError(f"4h {label}: block totals moved {moved}, "
+                                 f"parents inside blocks {inside}")
+        print(f"[4h {label}] block totals moved {moved:.2e} (limit 1e-3); "
+              f"global LML untouched; parents inside their block")
+    for label, op in (("rotate", lambda: g.pf_rotate_blocks(state, K, 1)),
+                      ("shuffle", lambda: g.pf_shuffle_blocks(state, K))):
+        out, counts = _path(f"4h {label} K={K}", op, (G3,))
+        for k in total:
+            total[k] += counts[k]
+        # the LML is a sum over a permuted vector: equal up to float32
+        # summation order
+        d_lml = abs(float(g.log_ml_estimate(out)) - float(lml0))
+        if not (torch.equal(out.log_weights,
+                            state.log_weights[out.parents.long()])
+                and _ancestry_ok(state, out) and d_lml < 1e-4):
+            raise AssertionError(f"4h {label}: weights and traces moved "
+                                 f"apart, or the LML moved {d_lml}")
+        print(f"[4h {label}] weights move with their traces; LML moved "
+              f"{d_lml:.2e} (limit 1e-4)")
+    return total
+
+
+def _mot_da_path():
+    """(i): the data-association model at N=100K, K=3, T=5, with the
+    association recovered at every slot of the last step."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.multi_object import (
+        MOTParams, mot_da_particle_filter)
+    p = MOTParams(n_objects=3, q=0.05, r=0.1, s0=0.5)
+    T = 5
+    rng = np.random.default_rng(7)
+    x_true = torch.tensor([[-4.0, 0.0], [0.0, 4.0], [4.0, -4.0]])
+    perms = np.stack([rng.permutation(3) for _ in range(T)])
+    y = (x_true[torch.from_numpy(perms)] + 0.05 * torch.from_numpy(
+        rng.normal(size=(T, 3, 2)).astype(np.float32))).cuda()
+    st, counts = _path("4i MOT-DA N=100K", lambda: mot_da_particle_filter(
+        torch.Generator(device="cuda").manual_seed(503), y, N_MAIN, T, p,
+        0.5, x_true.cuda()), ())
+    assoc = g.batched_choice(st, (T - 1, "assoc"))
+    w = g.get_norm_weights(st)
+    got = [int(torch.argmax(torch.stack([w[assoc[:, j] == o].sum()
+                                         for o in range(3)])))
+           for j in range(3)]
+    if got != [int(v) for v in perms[T - 1]]:
+        raise AssertionError(f"4i: associations {got}, truth "
+                             f"{perms[T - 1]}")
+    print(f"[4i MOT-DA] N={N_MAIN} K=3 T={T}: posterior-mode associations "
+          f"{got} == truth")
+    return counts
+
+
+def _config5_paths():
+    """Paths (f)-(i); returns the launch counts of each."""
+    y = _mot_data(T_C5)
+    st, c5 = _config5_path(y)
+    return {"4f": c5, "4g": _wide_pack_path(), "4h": _blockwise_path(st),
+            "4i": _mot_da_path()}
+
+
 def _event_ms(fn, reps):
     """Per-call time of ``fn`` with the host in the loop: one call between
     two events, the device idle while the host launches."""
@@ -604,21 +931,39 @@ def _compare_timing(label, kern, plain, card, mbytes=None):
 
 
 def _kernel_timing(n, card):
-    """Device ms of (kernel, plain) for G1, G2 and G4 at n particles."""
+    """Device ms of (kernel, plain) for G1, G2, G3 and G4 at n
+    particles."""
     from genparticlefilters_tpu_torch.ops.fused_gather import (
         resample_gather_split, resample_gather_split_plain,
         resample_gather_split_u, resample_gather_split_u_plain)
+    from genparticlefilters_tpu_torch.ops.gather import (
+        gather_cols, gather_cols_plain, gather_rows, gather_rows_plain)
     from genparticlefilters_tpu_torch.ops.merge_count import (
         merge_count, merge_count_plain)
-    from genparticlefilters_tpu_torch.smc.resample import systematic_F
+    from genparticlefilters_tpu_torch.smc.resample import (systematic_F,
+                                                           _F_to_parents)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     pieces = _pieces(WIDTHS, n, dev, gen)
     mb = 2 * sum(WIDTHS) * 4 * n / 1e6
     F = systematic_F(gen, _weights("dirichlet", n, dev, gen))
     c, u = _brackets(n, n, "plain", dev, gen)
-    G1, G2, G4 = KERNELS
+    c5_pieces = _pieces(WIDTHS_C5, n, dev, gen)
+    c5_parents = _F_to_parents(F, n)
+    c5_mb = (2 * sum(WIDTHS_C5) + 1) * 4 * n / 1e6
+    rows8 = [torch.randint(-2**31, 2**31 - 1, (n, 8), generator=gen,
+                           device=dev, dtype=torch.int32)]
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    _compare_timing(f"G3 row mode] N={n} [N, 8] permutation",
+                    lambda: gather_rows(rows8, perm),
+                    lambda: gather_rows_plain(rows8, perm), card,
+                    (2 * 8 + 1) * 4 * n / 1e6)
+    G1, G2, G3, G4 = KERNELS
     return {
+        G3: _compare_timing(
+            f"G3] N={n} widths={WIDTHS_C5} clustered parents",
+            lambda: gather_cols(c5_pieces, c5_parents),
+            lambda: gather_cols_plain(c5_pieces, c5_parents), card, c5_mb),
         G1: _compare_timing(
             f"G1] N={n} widths={WIDTHS}",
             lambda: resample_gather_split(pieces, F),
@@ -634,7 +979,8 @@ def _kernel_timing(n, card):
 
 def _profile_filter(run, y_obs, n, per_run, label, card):
     """Where a filter run's time goes: device busy time by kernel and host
-    time by phase span (om.* record_function spans), from torch.profiler."""
+    time by phase span (the om.* and c5.* record_function spans), from
+    torch.profiler."""
     from torch.profiler import profile, ProfilerActivity
     gen = torch.Generator(device="cuda").manual_seed(400)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -644,7 +990,7 @@ def _profile_filter(run, y_obs, n, per_run, label, card):
     ka = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in ka
-            if e.device_type == cuda and not e.key.startswith("om.")]
+            if e.device_type == cuda and not e.key.startswith(SPANS)]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if busy_ms <= 0:
         print(f"[5 profile] {label} N={n}: the profiler showed no device "
@@ -659,7 +1005,7 @@ def _profile_filter(run, y_obs, n, per_run, label, card):
           f"share {max(0.0, 1 - busy_ms / (per_run * 1e3)):.3f}); top: "
           f"{tops}")
     phases = []
-    for e in sorted((e for e in ka if e.key.startswith("om.")),
+    for e in sorted((e for e in ka if e.key.startswith(SPANS)),
                     key=lambda e: (e.key, e.device_type != cuda)):
         where, ms = (("device span", e.device_time_total)
                      if e.device_type == cuda else
@@ -709,9 +1055,68 @@ def phase_timing(y_obs, card):
     for method in methods:
         total, top = _sync_count(_filter(method), y_obs, N_MAIN)
         print(f"[5 syncs] {method} N={N_MAIN}: {total} synchronizing CUDA "
-              f"calls in one run (torch.cuda.set_sync_debug_mode); most: "
-              f"{top}")
+              f"calls in one run (torch.cuda.set_sync_debug_mode; limit "
+              f"{MAX_SYNCS}); by call site: {top}")
+        if total > MAX_SYNCS:
+            raise AssertionError(f"{method}: {total} host syncs per run, "
+                                 f"more than the {MAX_SYNCS} ESS checks")
+    _config5_timing(card)
     return kern_ms
+
+
+def _wall_ms(fn, reps=5):
+    """Host-clock ms of ``fn()`` ending in a synchronize, after a warm-up:
+    (median, min, max) of ``reps`` runs."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    r = times[1:]
+    return statistics.median(r), min(r), max(r)
+
+
+def _config5_timing(card):
+    """Config 5 at N=1M: the run, each resize verb, host syncs, profile."""
+    import genparticlefilters_tpu_torch as g
+    y = _mot_data(T_C5)
+    gen = torch.Generator(device="cuda").manual_seed(700)
+    med, lo, hi = _wall_ms(lambda: _c5_run(gen, y, N_C5))
+    per_run = med / 1e3
+    print(f"[5 config 5] MOT K=4 N={N_C5} T={T_C5} with two resizes: "
+          f"{med:.3f} ms/run (median of 5 after a warm-up; min {lo:.3f}, "
+          f"max {hi:.3f}), {N_C5 * T_C5 / (med / 1e3):,.0f} "
+          f"particle-updates/s; card {card}")
+    st = _c5_run(gen, y, N_C5)
+    half = g.pf_resize(gen, st, N_C5 // 2, "residual", check=False)
+    quarter = g.pf_resize(gen, st, N_C5 // 4, "optimal", check=False)
+    rep = g.pf_replicate(quarter, 4)
+    verbs = [
+        ("pf_resize residual 1M->500K",
+         lambda: g.pf_resize(gen, st, N_C5 // 2, "residual", check=False)),
+        ("pf_resize multinomial 500K->1M",
+         lambda: g.pf_resize(gen, half, N_C5, "multinomial", check=False)),
+        ("pf_resize optimal 1M->250K",
+         lambda: g.pf_resize(gen, st, N_C5 // 4, "optimal", check=False)),
+        ("pf_replicate x4 250K->1M", lambda: g.pf_replicate(quarter, 4)),
+        ("pf_dereplicate keepfirst 1M->250K",
+         lambda: g.pf_dereplicate(gen, rep, 4)),
+        ("pf_resample_blockwise systematic K=4",
+         lambda: g.pf_resample_blockwise(gen, st, 4, "systematic")),
+        ("pf_rotate_blocks K=4", lambda: g.pf_rotate_blocks(st, 4, 1)),
+    ]
+    for label, fn in verbs:
+        v_med, v_lo, v_hi = _wall_ms(fn)
+        print(f"[5 config 5 verb] {label}: {v_med:.3f} ms (median of 5; "
+              f"min {v_lo:.3f}, max {v_hi:.3f}); card {card}")
+    del st, half, quarter, rep
+    run = lambda gen_, y_, n: _c5_run(gen_, y_, n)  # noqa: E731
+    total, top = _sync_count(run, y, N_C5)
+    print(f"[5 syncs] config 5 N={N_C5}: {total} synchronizing CUDA calls "
+          f"in one run; by call site: {top}")
+    _profile_filter(run, y, N_C5, per_run, "config 5", card)
 
 
 def main():
@@ -723,9 +1128,10 @@ def main():
     g1_launches = phase_main_path(y_obs)
     seen = phase_paths(y_obs)
     kern_ms = phase_timing(y_obs, card)
-    G1, G2, G4 = KERNELS
+    G1, G2, G3, G4 = KERNELS
     launches = {G1: g1_launches,
                 G2: seen["4a"][G2],
+                G3: seen["4f"][G3],
                 G4: seen["4d"][G4]}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -3,16 +3,22 @@ genparticlefilters_tpu (Sequential Monte Carlo for Gen-style models).
 
 The JAX package beside it is the reference each part is held against.
 This package imports ``torch`` and never ``jax``. Ported so far: the
-object-motion and linear-Gaussian filters (batched interpretation, packed
+object-motion, linear-Gaussian and multi-object tracking (config 5, with
+its data-association variant) filters (batched interpretation, packed
 Unfold storage, windowed MH rejuvenation, Extend updates), multinomial,
 residual, stratified and systematic resampling of states and sub-state
-views, and the CUDA kernels G1 and G2 (fused resampling gathers) and G4
+views, resizing (multinomial, residual and optimal resize, replicate,
+dereplicate, coalesce, introduce), one-device blockwise resampling and
+block rotation and shuffling (``parallel``), and the CUDA kernels G1 and
+G2 (fused resampling gathers), G3 (explicit-parents gather) and G4
 (merge count).
 """
 
 from .core import *  # noqa: F401,F403
 from .smc import *  # noqa: F401,F403
+from .parallel import *  # noqa: F401,F403
 from .ops import (resample_gather_split, resample_gather_split_plain,  # noqa
                   resample_gather_split_u, resample_gather_split_u_plain,
-                  merge_count, merge_count_plain)
+                  merge_count, merge_count_plain, gather_cols,
+                  gather_cols_plain, gather_rows, gather_rows_plain)
 from .utils.weights import logsumexp, safe_softmax  # noqa: F401

@@ -1,6 +1,7 @@
 from .choicemap import (ChoiceMap, Entry, Selection, EMPTY, ALL, select,
                         normalize_address)
-from .distributions import Distribution, Normal, Bernoulli, normal, bernoulli
+from .distributions import (Distribution, Normal, Bernoulli, UniformDiscrete,
+                            normal, bernoulli, uniform_discrete)
 from .gfi import (Trace, GenFn, DynamicGenFn, gen, trace, NoChange,
                   UnknownChange, Extend, batched_interpretation,
                   current_batch, simulate, generate, update, regenerate)
@@ -8,7 +9,8 @@ from .combinators import Unfold
 
 __all__ = ["ChoiceMap", "Entry", "Selection", "EMPTY", "ALL", "select",
            "normalize_address", "Distribution",
-           "Normal", "Bernoulli", "normal", "bernoulli", "Trace", "GenFn",
+           "Normal", "Bernoulli", "UniformDiscrete", "normal", "bernoulli",
+           "uniform_discrete", "Trace", "GenFn",
            "DynamicGenFn", "gen", "trace", "NoChange", "UnknownChange",
            "Extend", "batched_interpretation", "current_batch", "simulate",
            "generate", "update", "regenerate", "Unfold"]

@@ -8,7 +8,8 @@ active length ``t`` shared (spec ``None``); per-particle scores and carries
 sit at axis 0. :func:`axes_spec` gathers those specs for a whole tree.
 
 :func:`tree_take` and :func:`tree_put` gather and scatter a whole tree
-along each leaf's particle axis (sub-state views, smc/state.py).
+along each leaf's particle axis (sub-state views, smc/state.py);
+:func:`tree_concat` joins two trees along it (``pf_introduce``).
 
 Only the batched form is ported; the per-particle (vmapped) form waits.
 """
@@ -21,7 +22,7 @@ from .gfi import Trace
 from .tree import tree_map, tree_flatten, tree_unflatten, flatten_up_to
 
 __all__ = ["axes_spec", "gen_spec", "const_spec", "spec_n",
-           "flatten_with_axes", "tree_take", "tree_put"]
+           "flatten_with_axes", "tree_take", "tree_put", "tree_concat"]
 
 
 def _leaf_axis(x, axis, n=None):
@@ -103,3 +104,16 @@ def tree_put(full, block, idx):
     return tree_unflatten(treedef, [
         f.index_copy(ax, idx.to(f.device), b) if _batched(f, ax) else f
         for f, ax, b in zip(leaves, axes, blocks)])
+
+
+def tree_concat(a, b):
+    """Concatenate two batched trees of the same structure along each
+    leaf's particle axis (the axes of ``a``). Leaves shared across
+    particles keep ``a``'s value."""
+    leaves, axes, treedef = flatten_with_axes(a)
+    others = tree_flatten(b)[0]
+    if len(others) != len(leaves):
+        raise ValueError("tree_concat: the trees differ in structure")
+    return tree_unflatten(treedef, [
+        torch.cat([x, y], dim=ax) if _batched(x, ax) else x
+        for x, ax, y in zip(leaves, axes, others)])

@@ -13,11 +13,24 @@ from typing import Any
 
 import torch
 
-__all__ = ["Distribution", "Normal", "normal", "Bernoulli", "bernoulli"]
+__all__ = ["Distribution", "Normal", "normal", "Bernoulli", "bernoulli",
+           "UniformDiscrete", "uniform_discrete"]
 
 
 def _f(x, device):
+    """``x`` as float32 on ``device``. A Python number enters by a fill
+    kernel: ``torch.as_tensor`` would copy it from pageable host memory,
+    which waits for the device queue (a host sync per parameter)."""
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _i(x, device):
+    """``x`` as int32 on ``device`` (Python ints by a fill kernel)."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=torch.int32, device=device)
+    return torch.as_tensor(x, device=device).to(torch.int32)
 
 
 def _device_of(*xs):
@@ -39,14 +52,13 @@ class Distribution:
 
     def _draw_shape(self, b: int):
         """The batched-draw shape: params whose leading dim equals ``b``
-        already carry the particle axis; shared params broadcast."""
+        already carry the particle axis; shared params (any other shape,
+        e.g. a ``[K, 2]`` initial state) get a leading particle axis, which
+        is the law of the JAX package's per-particle fallback draws."""
         bs = tuple(self.batch_shape())
         if len(bs) >= 1 and bs[0] == b:
             return bs
-        if bs == ():
-            return (b,)
-        raise ValueError(f"parameters of shape {bs} do not broadcast to a "
-                         f"batch of {b} particles")
+        return (b,) + bs
 
     def _draw(self, gen: torch.Generator, shape):
         raise NotImplementedError
@@ -115,5 +127,39 @@ class Bernoulli(Distribution):
         return torch.where(vb, torch.log(p), torch.log1p(-p))
 
 
+class UniformDiscrete(Distribution):
+    """Uniform over the integers ``lo..hi`` inclusive (Gen's
+    ``uniform_discrete``); values are int32."""
+
+    __slots__ = ("lo", "hi")
+
+    def __init__(self, lo: Any, hi: Any):
+        self.lo = lo
+        self.hi = hi
+
+    def batch_shape(self):
+        return torch.broadcast_shapes(tuple(torch.as_tensor(self.lo).shape),
+                                      tuple(torch.as_tensor(self.hi).shape))
+
+    def _draw(self, gen, shape):
+        dev = gen.device
+        lo, hi = _i(self.lo, dev), _i(self.hi, dev)
+        # floor(u * n) of a float64 uniform: exact to 2^-53 of the law,
+        # with the clamp guarding the u * n rounding up to n
+        u = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+        k = torch.floor(u * (hi - lo + 1).to(torch.float64)).to(torch.int32)
+        return lo + torch.minimum(k, hi - lo)
+
+    def log_prob(self, value):
+        dev = _device_of(value, self.lo, self.hi)
+        lo, hi = _i(self.lo, dev), _i(self.hi, dev)
+        v = _i(value, dev)
+        n = (hi - lo + 1).to(torch.float32)
+        return torch.where((v >= lo) & (v <= hi), -torch.log(n),
+                           torch.full((), -math.inf, dtype=torch.float32,
+                                      device=dev))
+
+
 normal = Normal
 bernoulli = Bernoulli
+uniform_discrete = UniformDiscrete

@@ -11,6 +11,20 @@ numpy array by the caller). For the object-motion filter those are::
     t,                                  # active length
     log_weights [N] f32, log_ml_est f32, parents [N] i32
 
+For the multi-object tracking filter (config 5; K objects, ``y``
+observed densely and so stored shared, the ``[K, 2]`` carry kept in the
+store rather than the scalar carry cache)::
+
+    args t, x0 [K, 2] f32,               # the trace's shared args
+    score [N] f32,
+    mat [T*4K, N] i32, y [T, K, 2] f32,  # 16 rows per step at K=4
+    t,                                   # active length
+    log_weights [N] f32, log_ml_est f32, parents [N] i32
+
+The data-association variant adds the ``[K]`` int32 ``assoc`` rows to
+``mat`` (``T*5K`` rows). ``MOTParams`` holds no learned parameters; the
+same values are passed to both packages.
+
 float32 leaves cross bit for bit and bool leaves as bool. The port's own
 flattening (core/tree.py) has the same order, so the structure comes from
 a template state built by the port itself. This module never sees JAX.

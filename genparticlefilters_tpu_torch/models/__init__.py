@@ -1,7 +1,10 @@
 from . import object_motion as _object_motion
 from . import linear_gaussian as _linear_gaussian
+from . import multi_object as _multi_object
 
 from .object_motion import *  # noqa: F401,F403
 from .linear_gaussian import *  # noqa: F401,F403
+from .multi_object import *  # noqa: F401,F403
 
-__all__ = _object_motion.__all__ + _linear_gaussian.__all__
+__all__ = (_object_motion.__all__ + _linear_gaussian.__all__
+           + _multi_object.__all__)

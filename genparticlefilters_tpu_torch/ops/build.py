@@ -20,7 +20,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load_library", "load_libraries", "build_info", "NVCC_FLAGS"]
+__all__ = ["load_library", "load_libraries", "load_all", "build_info",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -88,6 +89,17 @@ def load_libraries(binds: dict) -> dict:
             binds[name](lib)
             _LOADED[name] = (lib, record)
     return {name: _LOADED[name][0] for name in binds}
+
+
+def load_all() -> dict:
+    """Build side by side and load every kernel of the package: G1
+    (``stairs_gather``), G2 (``stairs_gather_u``), G3 (``gather_parents``)
+    and G4 (``merge_count``). Returns ``{name: library}``."""
+    from .fused_gather import _LIB, _LIB_U, _bind, _bind_u
+    from .gather import _LIB as _LIB_G3, _bind as _bind_g3
+    from .merge_count import _LIB as _LIB_G4, _bind as _bind_g4
+    return load_libraries({_LIB: _bind, _LIB_U: _bind_u, _LIB_G3: _bind_g3,
+                           _LIB_G4: _bind_g4})
 
 
 def build_info(name: str) -> dict:

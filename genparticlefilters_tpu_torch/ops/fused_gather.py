@@ -93,12 +93,15 @@ def resample_gather_split_plain(pieces: Sequence[torch.Tensor],
     return [p[:, idx] for p in pieces], parents
 
 
-def _launch_tables(pieces, outs):
-    """ctypes arrays of the pieces' and outputs' pointers and widths."""
+def _launch_tables(pieces, outs, widths=None):
+    """ctypes arrays of the pieces' and outputs' pointers and widths
+    (``widths`` defaults to each piece's row count)."""
     k = max(len(pieces), 1)
+    if widths is None:
+        widths = [p.shape[0] for p in pieces]
     src = (ctypes.c_void_p * k)(*[p.data_ptr() for p in pieces])
     dst = (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs])
-    rows = (ctypes.c_int32 * k)(*[p.shape[0] for p in pieces])
+    rows = (ctypes.c_int32 * k)(*widths)
     return (ctypes.cast(src, ctypes.c_void_p),
             ctypes.cast(dst, ctypes.c_void_p),
             ctypes.cast(rows, ctypes.c_void_p))

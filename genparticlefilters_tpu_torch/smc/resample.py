@@ -19,12 +19,13 @@ leaf:
   with zero pieces and the roles swapped (``residual_F_fused``) -> F -> G1.
 
 Sorted stratified/systematic (``sort_particles=True``) and every sub-state
-take explicit parents and a plain ``index_select`` per packed piece; the
-multinomial and residual parents come from the merge count G4
-(``ops/merge_count.py``). Full states fold the LML before resampling and
-reset the weights to zero (or to the weight/priority ratio summing to n);
-sub-states keep the block's total weight, never touch the LML and record
-global parents.
+take explicit parents and the explicit-parents gather G3
+(``ops/gather.py``: ``gather_cols`` for particle-last pieces,
+``gather_rows`` for contiguous particle-first leaves); the multinomial and
+residual parents come from the merge count G4 (``ops/merge_count.py``).
+Full states fold the LML before resampling and reset the weights to zero
+(or to the weight/priority ratio summing to n); sub-states keep the
+block's total weight, never touch the LML and record global parents.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from ..core.batching import flatten_with_axes
 from ..core.tree import tree_unflatten
 from ..ops.fused_gather import resample_gather_split, resample_gather_split_u
+from ..ops.gather import gather_cols, gather_rows
 from ..ops.merge_count import merge_count
 from ..utils.weights import (safe_softmax, apply_check, logsumexp,
                              log_float32)
@@ -44,7 +46,8 @@ __all__ = ["pf_resample", "pf_multinomial_resample", "pf_residual_resample",
            "multinomial_parents", "residual_parents", "stratified_parents",
            "systematic_parents", "stratified_F", "systematic_F",
            "multinomial_F", "residual_F", "multinomial_cu",
-           "stratified_cu", "residual_F_fused", "counts_to_parents"]
+           "stratified_cu", "residual_F_fused", "counts_to_parents",
+           "blockwise_compose"]
 
 
 def counts_to_parents(counts, n_out: int):
@@ -68,19 +71,21 @@ def _pinned_F(cdf_hits, n_out: int):
     number of output slots with parent <= i; output j's parent is
     ``#{i : F_i <= j}``. The cummax keeps F monotone where a float32
     cumsum is not (parallel scans reassociate). The pin is a fill kernel:
-    assigning a Python int would copy it from the host and sync."""
+    assigning a Python int would copy it from the host and sync. A
+    ``[K, b]`` input is pinned row by row (blockwise resampling)."""
     F = torch.clamp(cdf_hits, 0, n_out)
-    F[-1:].fill_(n_out)
+    F[..., -1:].fill_(n_out)
     return _cummax(F)
 
 
 def _cummax(x):
-    return torch.cummax(x, 0).values
+    return torch.cummax(x, -1).values
 
 
 def _normalized(c):
-    """``c / max(c[-1], 1e-37)``: cumulative weights scaled to end at 1."""
-    return c / torch.clamp_min(c[-1], 1e-37)
+    """``c / max(c[-1], 1e-37)`` along the last axis: cumulative weights
+    scaled to end at 1."""
+    return c / torch.clamp_min(c[..., -1:], 1e-37)
 
 
 def _draws(x, shape, device, draw):
@@ -283,13 +288,16 @@ def systematic_parents(gen, weights, n_out: int | None = None,
 # State-level resampling
 # ---------------------------------------------------------------------------
 
-def _pack_rows(leaves, axes):
+def _pack_rows(leaves, axes, row_mode: bool = False):
     """Pack gatherable 4-byte leaves into ``[w, N]`` int32 row blocks,
     particle axis LAST, so the time-major packed storage is one block with
-    no data movement. float32 rows are bit patterns, bool rows 0/1.
-    Returns (rows, meta), meta = (dtype, shape, width, particle_axis);
-    width 0 marks pass-through leaves (other dtypes, Python values, or
-    leaves shared across particles)."""
+    no data movement. float32 rows are bit patterns, bool rows 0/1. With
+    ``row_mode``, a contiguous leaf of rank >= 2 whose particle axis is 0
+    becomes an ``[N, w]`` block instead (a view, where the particle-last
+    block would cost a transposing copy), for G3's row gather.
+    Returns (rows, meta), meta = (dtype, shape, width, particle_axis,
+    by_row); width 0 marks pass-through leaves (other dtypes, Python
+    values, or leaves shared across particles)."""
     rows, meta = [], []
     for leaf, ax in zip(leaves, axes):
         packable = (isinstance(leaf, torch.Tensor) and ax is not None
@@ -299,8 +307,10 @@ def _pack_rows(leaves, axes):
         if not packable:
             rows.append(None)
             meta.append((getattr(leaf, "dtype", None),
-                         tuple(getattr(leaf, "shape", ())), 0, ax))
+                         tuple(getattr(leaf, "shape", ())), 0, ax, False))
             continue
+        by_row = (row_mode and ax == 0 and leaf.dim() >= 2
+                  and leaf.is_contiguous())
         if leaf.dtype == torch.float32:
             flat = leaf.contiguous().view(torch.int32)
         elif leaf.dtype == torch.bool:
@@ -308,20 +318,27 @@ def _pack_rows(leaves, axes):
         else:
             flat = leaf
         n = leaf.shape[ax]
-        if ax != leaf.dim() - 1:
-            flat = torch.movedim(flat, ax, -1)
-        rows.append(flat.reshape(-1, n).contiguous())
-        meta.append((leaf.dtype, tuple(leaf.shape), leaf.numel() // n, ax))
+        if by_row:
+            rows.append(flat.reshape(n, -1))
+        else:
+            if ax != leaf.dim() - 1:
+                flat = torch.movedim(flat, ax, -1)
+            rows.append(flat.reshape(-1, n).contiguous())
+        meta.append((leaf.dtype, tuple(leaf.shape), leaf.numel() // n, ax,
+                     by_row))
     return rows, meta
 
 
-def _seg_to_leaf(seg, dtype, shape, ax, n):
-    """One gathered row block [w, n] -> the trace leaf (bit pattern back,
-    reshape, particle axis restored)."""
+def _seg_to_leaf(seg, dtype, shape, ax, n, by_row=False):
+    """One gathered block -> the trace leaf (bit pattern back, reshape,
+    particle axis restored): ``[w, n]``, or ``[n, w]`` for a row-mode
+    leaf."""
     if dtype == torch.float32:
         seg = seg.view(torch.float32)
     elif dtype == torch.bool:
         seg = seg != 0
+    if by_row:
+        return seg.reshape((n,) + tuple(shape[1:]))
     new_shape = tuple(shape[:ax]) + tuple(shape[ax + 1:]) + (n,)
     if tuple(seg.shape) != new_shape:
         seg = seg.reshape(new_shape)
@@ -336,7 +353,7 @@ def _unpack_split(outs, leaves, meta, parents, n):
     axis (other dtypes) are gathered here directly."""
     out_leaves = []
     it = iter(outs)
-    for leaf, (dtype, shape, width, ax) in zip(leaves, meta):
+    for leaf, (dtype, shape, width, ax, by_row) in zip(leaves, meta):
         if width == 0:
             if (ax is None or not isinstance(leaf, torch.Tensor)
                     or leaf.dim() <= ax):
@@ -345,7 +362,8 @@ def _unpack_split(outs, leaves, meta, parents, n):
                 out_leaves.append(torch.index_select(leaf, ax,
                                                      parents.long()))
             continue
-        out_leaves.append(_seg_to_leaf(next(it), dtype, shape, ax, n))
+        out_leaves.append(_seg_to_leaf(next(it), dtype, shape, ax, n,
+                                       by_row))
     return out_leaves
 
 
@@ -375,12 +393,27 @@ def _gather_traces_from_cu(traces, c, u):
         traces, lambda pieces: resample_gather_split_u(pieces, c, u))
 
 
-def _gather_traces(traces, parents):
-    """Ancestry gather ``traces[parents]`` from explicit parents, one
-    ``index_select`` per piece."""
-    idx = parents.long()
-    return _gather_pieces(traces, lambda pieces: (
-        [torch.index_select(p, 1, idx) for p in pieces], parents))[0]
+def _gather_traces(traces, parents, clustered: bool = False):
+    """Ancestry gather ``traces[parents]`` from explicit int32 parents, by
+    G3: particle-last pieces (the packed step storage, per-particle
+    vectors) in one ``gather_cols`` launch, contiguous particle-first
+    leaves of rank >= 2 in one ``gather_rows`` launch. G3 takes parents in
+    any order, so ``clustered`` (the JAX package's switch to its clustered
+    kernel) is accepted and changes nothing."""
+    del clustered
+    parents = parents.to(torch.int32).contiguous()
+    leaves, axes, treedef = flatten_with_axes(traces)
+    rows, meta = _pack_rows(leaves, axes, row_mode=True)
+    by_row = [mt[4] for r, mt in zip(rows, meta) if r is not None]
+    pieces = [r for r in rows if r is not None]
+    col_outs = iter(gather_cols([p for p, br in zip(pieces, by_row)
+                                 if not br], parents))
+    row_outs = iter(gather_rows([p for p, br in zip(pieces, by_row) if br],
+                                parents))
+    outs = [next(row_outs) if br else next(col_outs) for br in by_row]
+    out_leaves = _unpack_split(outs, leaves, meta, parents,
+                               parents.shape[0])
+    return tree_unflatten(treedef, out_leaves)
 
 
 def _new_weights_full(n, log_weights, log_priorities, parents, custom):
@@ -402,6 +435,127 @@ def _new_weights_sub(n, log_weights, log_priorities, parents, custom):
     idx = parents.long()
     lw = log_weights[idx] - log_priorities[idx]
     return lw + (logsumexp(log_weights) - logsumexp(lw))
+
+
+def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
+                      v=None):
+    """Compose the per-block offspring structures of ``K`` independent
+    resamples into ONE globally clustered fused gather (the one-device path
+    of ``parallel.pf_resample_blockwise``).
+
+    Per-block parents are non-decreasing within each block and blocks are
+    ascending, so the concatenation is globally clustered. Per-block scans
+    are 2-D ``[K, b]`` scans along dim 1. Composition per method:
+
+    - ``systematic``: per-block cumulative hit counts ``F_k`` plus block
+      offsets, bit-identical to the per-block formulation; draws ``u0
+      [K]``.
+    - ``multinomial``: per-block float brackets ``(c_k, u_k)`` rescaled to
+      ``(k + x)/K`` so brackets and queries stay ascending across blocks and
+      every query lands inside its own block's bracket span; draws ``e
+      [K, b + 1]`` (exponential spacings, as :func:`multinomial_cu`).
+    - ``stratified`` (unsorted): per-block brackets exactly like
+      multinomial, from draws ``v [K, b]``.
+    - ``residual``: per-block deterministic ``⌊b·w⌋`` counts plus the
+      remainder counted by ONE role-swapped G2 pass over the ``(k + x/2)/K``
+      composition; draws ``e [K, b + 1]``.
+
+    Draws come from ``gen`` unless passed. Returns ``("F", F_global)`` or
+    ``("cu", (c_global, u_global))``.
+    """
+    K, b = weights_blocks.shape
+    dev = weights_blocks.device
+    offs = (torch.arange(K, dtype=torch.int32, device=dev) * b)[:, None]
+    kf = torch.arange(K, dtype=torch.float32, device=dev)[:, None]
+    invK = 1.0 / float(K)
+
+    def spacings():
+        ex = _draws(e, (K, b + 1), dev, lambda: torch.empty(
+            (K, b + 1), dtype=torch.float32, device=dev).exponential_(
+                generator=gen))
+        return _cummax(torch.cumsum(ex, 1))
+
+    def brackets(w):
+        return _normalized(_cummax(torch.cumsum(w, 1)))
+
+    if method == "systematic":
+        u = _draws(u0, (K,), dev, lambda: torch.rand(
+            (K,), generator=gen, dtype=torch.float32, device=dev))
+        c = b * torch.cumsum(weights_blocks, 1) - u[:, None]
+        F = _pinned_F(torch.floor(c).to(torch.int32) + 1, b)
+        return "F", (F + offs).reshape(K * b)
+    if method == "stratified":
+        # unsorted stratified: per-block float brackets exactly like
+        # multinomial (per-stratum draws are ascending by construction;
+        # same clamp rationale as the multinomial branch)
+        vv = _draws(v, (K, b), dev, lambda: torch.rand(
+            (K, b), generator=gen, dtype=torch.float32, device=dev))
+        u = (torch.arange(b, dtype=torch.float32, device=dev) + vv) / b
+        c = brackets(weights_blocks)
+        u = torch.clamp_min(u, max(K, 2) * 2.0 ** -21)
+        return "cu", (((kf + c) * invK).reshape(K * b),
+                      ((kf + u) * invK).reshape(K * b))
+    if method == "multinomial":
+        ce = spacings()
+        u = ce[:, :-1] / ce[:, -1:]
+        c = brackets(weights_blocks)
+        # clamp >= K*2^-21 (not 2^-23): with ~1 ulp of margin, (k+u)*invK
+        # and the block boundary k*invK can still round to EQUAL f32 values
+        # for k near K at non-power-of-two K, so the strict c_prev < u
+        # bracket condition would match nothing. 2^-21 leaves >= 4 ulps
+        # after the rescale; matches the residual path's margin (2^-22
+        # before its extra halving).
+        u = torch.clamp_min(u, max(K, 2) * 2.0 ** -21)
+        return "cu", (((kf + c) * invK).reshape(K * b),
+                      ((kf + u) * invK).reshape(K * b))
+    if method == "residual":
+        scaled = b * weights_blocks
+        det = torch.floor(scaled).to(torch.int32)
+        n_res = b - torch.sum(det, 1, dtype=torch.int32)
+        resid = scaled - det.to(weights_blocks.dtype)
+        rc = brackets(resid)
+        # the same K-scaled margin as multinomial, before the halving below
+        rc = torch.clamp_min(rc, max(K, 2) * 2.0 ** -22)
+        ce = spacings()
+        # ce[k, R_k] read with a gather: indexing with device values on the
+        # host would sync
+        denom = torch.gather(ce, 1, torch.clamp(n_res, 0, b).long()[:, None])
+        j = torch.arange(b, device=dev)[None, :]
+        u = torch.where(j < n_res[:, None],
+                        torch.clamp_max(ce[:, :-1] / denom, 1.5), 1.75)
+        # compose sources (u, up to 1.75) and queries (rc <= 1) with the
+        # SAME monotone per-block map x -> (k + x/2)/K: ascending across
+        # blocks, within-block counts preserved
+        ug = ((kf + 0.5 * u) * invK).reshape(K * b)
+        rcg = ((kf + 0.5 * rc) * invK).reshape(K * b)
+        _, gidx = resample_gather_split_u([], ug, rcg)
+        G = gidx.reshape(K, b) - offs  # per-block remainder hit counts
+        F = _pinned_F(torch.cumsum(det, 1, dtype=torch.int32) + G, b)
+        return "F", (F + offs).reshape(K * b)
+    raise ValueError(f"no fused blockwise composition for {method!r}")
+
+
+def _resample_block(gen, traces, log_weights, parent_fn, priority_fn=None,
+                    F_fn=None, cu_fn=None, clustered=True):
+    """Block-local resample of bare ``(traces, log_weights)`` keeping the
+    block's total weight (sub-state semantics): the per-device body of a
+    sharded blockwise resample. The fused gathers run when the method has
+    one (``cu_fn`` -> G2, ``F_fn`` -> G1), otherwise ``parent_fn``'s
+    explicit parents go through G3. Returns ``(new_traces, parents_local,
+    new_log_weights)``."""
+    b = log_weights.shape[0]
+    custom = priority_fn is not None
+    lp = priority_fn(log_weights) if custom else log_weights
+    w, _ = safe_softmax(lp)
+    if cu_fn is not None:
+        new_traces, parents = _gather_traces_from_cu(traces, *cu_fn(gen, w))
+    elif F_fn is not None:
+        new_traces, parents = _gather_traces_from_F(traces, F_fn(gen, w))
+    else:
+        parents = parent_fn(gen, w, lp)
+        new_traces = _gather_traces(traces, parents, clustered=clustered)
+    new_lw = _new_weights_sub(b, log_weights, lp, parents, custom)
+    return new_traces, parents, new_lw
 
 
 def _resample_impl(gen, state, parent_fn, priority_fn, check, F_fn=None,

@@ -39,24 +39,25 @@ def softmax(vs):
 
 
 def safe_softmax(vs):
-    """Returns ``(weights, invalid)``:
+    """Returns ``(weights, invalid)`` over the last axis (each row of a
+    ``[K, b]`` matrix on its own, ``invalid`` then ``[K]``):
 
     - any NaN input          -> NaN weights, invalid
     - all inputs are -inf    -> uniform weights, invalid
     - otherwise              -> normalized weights, valid
     """
     n = vs.shape[-1]
-    any_nan = torch.any(torch.isnan(vs))
-    m = torch.max(vs)
+    any_nan = torch.any(torch.isnan(vs), dim=-1, keepdim=True)
+    m = torch.max(vs, dim=-1, keepdim=True).values
     all_neginf = m == -torch.inf
     zero = torch.zeros((), dtype=vs.dtype, device=vs.device)
     safe_vs = torch.where(all_neginf | any_nan, zero, vs - m)
     ws = torch.exp(safe_vs)
-    norm = ws / torch.sum(ws)
-    uniform = torch.full((n,), 1.0 / n, dtype=vs.dtype, device=vs.device)
+    norm = ws / torch.sum(ws, dim=-1, keepdim=True)
+    uniform = torch.full((), 1.0 / n, dtype=vs.dtype, device=vs.device)
     out = torch.where(all_neginf, uniform, norm)
     out = torch.where(any_nan, torch.full_like(out, torch.nan), out)
-    return out, any_nan | all_neginf
+    return out, (any_nan | all_neginf).squeeze(-1)
 
 
 def ess_from_log_weights(log_weights):

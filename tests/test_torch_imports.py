@@ -5,6 +5,8 @@ on a machine without a GPU, triton or nvcc."""
 import importlib
 import pkgutil
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -26,6 +28,29 @@ def test_every_module_imports():
     import genparticlefilters_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
-    assert "genparticlefilters_tpu_torch.ops.fused_gather" in names
+    for name in ("ops.fused_gather", "ops.gather", "smc.resize",
+                 "models.multi_object", "parallel", "parallel.distributed"):
+        assert f"genparticlefilters_tpu_torch.{name}" in names
     for name in names:
         importlib.import_module(name)
+
+
+def test_new_modules_import_without_jax_or_triton():
+    """ops/gather, smc/resize, models/multi_object and parallel import in a
+    fresh interpreter where jax and triton cannot be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'triton'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import genparticlefilters_tpu_torch.ops.gather\n"
+        "import genparticlefilters_tpu_torch.smc.resize\n"
+        "import genparticlefilters_tpu_torch.models.multi_object\n"
+        "import genparticlefilters_tpu_torch.parallel\n"
+        "assert not any(m.split('.')[0] in ('jax', 'triton')\n"
+        "               for m in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
