@@ -1,6 +1,6 @@
 """Drive the PyTorch port's paths once on one CUDA card.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--against DIR]
 
 Phases (each prints summary lines; any failure raises, so the exit code is
 non-zero and no result line is printed):
@@ -8,10 +8,14 @@ non-zero and no result line is printed):
 1. environment: torch / CUDA / nvcc / triton versions and the card;
 2. build: compile the kernels for sm_90a, one nvcc per source, side by
    side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu), G3
-   (csrc/gather_parents.cu) and G4 (csrc/merge_count.cu);
+   (csrc/gather_parents.cu, column and row mode) and G4
+   (csrc/merge_count.cu);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, bit-equal at the main-path shapes and the edge shapes (G1 and G2
-   also at a 1026-row pack);
+   also at a 1026-row pack; G4 also at skewed inputs: degenerate weights,
+   all-equal u, n or m = 1, m = 4n and n = 4m, m = 0; G3's row mode at
+   widths 1-16, a view off a 16-byte boundary, M = N/4 and 4N, extreme
+   bit patterns);
 4. main path: the object-motion filter at N=100K, T=10, systematic
    resampling, on cuda — G1's launch count must rise during the run — then
    the posterior against exact enumeration over 4 seeds;
@@ -31,27 +35,46 @@ non-zero and no result line is printed):
    rows), multinomial at N=100K (G2) and systematic at N=1000 (G1);
    (h) blockwise resampling of the (f) state in 4 blocks, every method,
    then block rotation and shuffle (G1, G2, G3); (i) the data-association
-   model at N=100K, K=3, T=5, associations recovered;
-5. timing: each kernel against its plain version (CUDA events, medians:
+   model at N=100K, K=3, T=5, associations recovered; (f) and (h) print
+   the widths of the particle-first leaves they hand to G3's row mode;
+4j. a model with an 8-wide vector site at N=1M (its [N, 8] leaves take
+   G3's row mode): sorted stratified resampling, sub-state resampling of
+   two halves (G4), optimal resize to N/4 and block rotation, each against
+   the exact posterior and LML and the ancestry check (G3 rows, G4);
+5. timing: each kernel against its plain version and, where one PyTorch
+   call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
-   in the loop) at N=100K and N=1M; the whole filter per run at N=100K and
-   N=1M for systematic, residual and multinomial resampling; the host
-   syncs of one run (at most 9, the ESS checks); a torch.profiler
-   breakdown of the systematic and residual runs (device busy time by
-   kernel, host time by phase); and for config 5 the run time, each resize
-   verb's time, the host syncs of one run and a profiler breakdown.
+   in the loop), with its bound (the bytes it must move over 3.35 TB/s)
+   and its share of the bound, at N=100K and N=1M; G4 also at the skewed
+   inputs and G3's row mode at widths 1, 8 and 16; the whole filter per
+   run at N=100K and N=1M for systematic, residual and multinomial
+   resampling; the host syncs of one run (at most 9, the ESS checks); a
+   torch.profiler breakdown of the systematic and residual runs (device
+   busy time by kernel, host time by phase); and for config 5 the run
+   time, each resize verb's time, the host syncs of one run and a profiler
+   breakdown;
+6. only with ``--against DIR``: DIR holds earlier versions of
+   merge_count.cu and gather_parents.cu (same C entry points as the ones
+   they precede); they are built under other library names and timed
+   against this tree's G4 and G3 in turns (earlier, this, this, earlier)
+   at the shapes of phase 5.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, a JSON line lists each kernel with its launches on
-the path that exercises it ((4) for G1, (4a) for G2, (4f) for G3, (4d)
-for G4), its largest error against the plain version and its device time
-at N=100K.
+the path that exercises it ((4) for G1, (4a) for G2, (4f) for G3's column
+mode, (4j) for its row mode, (4d) for G4), its largest error against the
+plain version, its device time at N=100K beside its plain version's, the
+library call's (or null) and its bound.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import collections
+import contextlib
+import ctypes
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -67,11 +90,14 @@ N_SMALL = 100                   # the README's config-1 particle count
 WIDTHS = (1, 1, 1, 40)          # the main path's pieces: score, carry y,
 #                                 carry moving, packed step store mat
 N_C5, T_C5 = 1_000_000, 10      # config 5 at its published size
+N_VEC, D_VEC, Y_VEC = 1_000_000, 8, 2.0   # path 4j: x ~ N(0, I_8),
+#                                           y ~ N(sum(x), 1), y = 2
 WIDTHS_C5 = (1, 160)            # its pieces: score, mat (16 rows per step)
 T_WIDE = 64                     # 16*64 + 1 = 1025 packed rows: past the
 #                                 TPU lane kernels' 1022-row cap
 SPANS = ("om.", "c5.")          # profiler span prefixes of the filter runs
 MAX_SYNCS = 9                   # per object-motion run: the 9 ESS checks
+HBM_BYTES_PER_MS = 3.35e9       # the H100 SXM's 3.35 TB/s
 CSRC = "genparticlefilters_tpu_torch/csrc/"
 TPU = "genparticlefilters_tpu/ops/"
 # name -> (source, the TPU kernel it replaces)
@@ -83,11 +109,13 @@ KERNELS = {
                              + TPU + "fused_gather.py:196"),
     "gather_parents (G3)": (CSRC + "gather_parents.cu",
                             TPU + "fused_gather.py:250, "
-                            + TPU + "fused_gather.py:1014, "
-                            + TPU + "gather.py:30, "
-                            + TPU + "sorted_gather.py:38"),
+                            + TPU + "fused_gather.py:1014"),
+    "gather_parents rows (G3r)": (CSRC + "gather_parents.cu",
+                                  TPU + "gather.py:30, "
+                                  + TPU + "sorted_gather.py:38"),
     "merge_count (G4)": (CSRC + "merge_count.cu", TPU + "merge_count.py:41"),
 }
+G1, G2, G3, G3R, G4 = KERNELS
 
 
 def _run(cmd):
@@ -105,27 +133,23 @@ def _card_line():
 
 
 def _wrappers():
-    """Kernel name -> its wrappers (each carries a ``launches`` count; G3
-    has one per mode)."""
+    """Kernel name -> its wrapper (each carries a ``launches`` count)."""
     from genparticlefilters_tpu_torch.ops.fused_gather import (
         resample_gather_split, resample_gather_split_u)
     from genparticlefilters_tpu_torch.ops.gather import (gather_cols,
                                                          gather_rows)
     from genparticlefilters_tpu_torch.ops.merge_count import merge_count
-    return dict(zip(KERNELS, ((resample_gather_split,),
-                              (resample_gather_split_u,),
-                              (gather_cols, gather_rows), (merge_count,))))
+    return dict(zip(KERNELS, (resample_gather_split, resample_gather_split_u,
+                              gather_cols, gather_rows, merge_count)))
 
 
 def _reset_counts():
-    for fns in _wrappers().values():
-        for fn in fns:
-            fn.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _counts():
-    return {name: sum(fn.launches for fn in fns)
-            for name, fns in _wrappers().items()}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _short(counts):
@@ -285,22 +309,56 @@ def _check_G2(dev, gen):
     return max_err
 
 
+def _g4_inputs(n, m, kind, dev, gen):
+    """G4's (c, u) at n and m: dirichlet brackets against sorted uniforms,
+    with exact ties, residual's padding, all the mass on the first or the
+    last particle, or every u equal to one c (so every u ties)."""
+    c, u = _brackets(n, max(m, 1), "plain", dev, gen)
+    u = u[:m].contiguous()
+    if kind == "ties":   # exact ties u_j == c_i count (side='right')
+        u[: m // 4] = c[torch.randint(0, n, (m // 4,), generator=gen,
+                                      device=dev)]
+        u = torch.sort(u).values
+    elif kind == "padded":   # residual's padding of unused draws
+        u[m // 2:] = 1.75
+        u[m // 2 - 3:m // 2] = 1.5
+    elif kind == "mass first":
+        c = torch.ones(n, device=dev)
+    elif kind == "mass last":
+        c = torch.zeros(n, device=dev)
+        c[-1] = 1.0
+    elif kind == "equal u":
+        u = c[n // 2].expand(m).contiguous()
+    elif kind == "cumsum dips":   # the card's float32 cumsum, no cummax:
+        # it dips by an ulp where its scan blocks meet (outside G4's
+        # contract; the kernel counts for the running maximum of c)
+        s = 2.0 - math.sqrt(D_VEC) * torch.randn(n, generator=gen,
+                                                 device=dev)
+        w = torch.softmax(-0.5 * s * s, 0)
+        c = torch.cumsum(w, 0)
+        c = c / c[-1]
+    return c, u
+
+
+G4_SKEWED = [(1_000_000, 1_000_000, "mass first"),
+             (1_000_000, 1_000_000, "mass last"),
+             (1_000_000, 1_000_000, "equal u"),
+             (200_000, 800_000, "plain"), (800_000, 200_000, "plain")]
+
+
 def _check_G4(dev, gen):
     from genparticlefilters_tpu_torch.ops.merge_count import (
         merge_count, merge_count_plain)
     cases = [(N_MAIN, N_MAIN, "plain"), (1_000_000, 1_000_000, "plain"),
              (N_MAIN, 60_000, "plain"), (30_000, N_MAIN, "plain"),
-             (N_MAIN, N_MAIN, "ties"), (N_MAIN, N_MAIN, "padded")]
+             (N_MAIN, N_MAIN, "ties"), (N_MAIN, N_MAIN, "padded"),
+             (1_000_000, 1_000_000, "ties"),
+             (1_000_000, 1_000_000, "padded"), *G4_SKEWED,
+             (N_MAIN, N_MAIN, "mass last"), (1_000_000, 1, "plain"),
+             (1, 1_000_000, "plain"), (1, 1, "plain"), (N_MAIN, 0, "plain")]
     max_err = 0
     for n, m, kind in cases:
-        c, u = _brackets(n, m, "plain", dev, gen)
-        if kind == "ties":   # exact ties u_j == c_i count (side='right')
-            u[: m // 4] = c[torch.randint(0, n, (m // 4,), generator=gen,
-                                          device=dev)]
-            u = torch.sort(u).values
-        elif kind == "padded":   # residual's padding of unused draws
-            u[m // 2:] = 1.75
-            u[m // 2 - 3:m // 2] = 1.5
+        c, u = _g4_inputs(n, m, kind, dev, gen)
         F = merge_count(c, u)
         torch.cuda.synchronize()
         ref = merge_count_plain(c, u)
@@ -309,6 +367,17 @@ def _check_G4(dev, gen):
         if not torch.equal(F, ref):
             raise AssertionError(f"G4 differs at n={n} m={m} {kind}")
         print(f"[3 G4] n={n} m={m} {kind}: bit-equal to plain")
+    for n in (500_000, 1_000_000):
+        c, u = _g4_inputs(n, n, "cumsum dips", dev, gen)
+        dips = int((c[1:] < c[:-1]).sum())
+        F = merge_count(c, u)
+        ref = torch.cummax(merge_count_plain(c, u), 0).values
+        if not torch.equal(F, ref):
+            raise AssertionError(f"G4 differs on a cumsum with {dips} dips: "
+                                 f"{int((F != ref).sum())} counts")
+        print(f"[3 G4] n=m={n}, c a card cumsum with {dips} one-ulp dips: "
+              f"bit-equal to the cummax of plain (what _pinned_F makes of "
+              f"either)")
     return max_err
 
 
@@ -321,9 +390,24 @@ def _extreme_pieces(n, dev):
     return [col[:, None].expand(len(vals), n).contiguous().to(dev)]
 
 
+def _row_pieces(widths, n, dev, gen):
+    return [torch.randint(-2**31, 2**31 - 1, (n, w), generator=gen,
+                          device=dev, dtype=torch.int32) for w in widths]
+
+
+def _offset_rows(n, w, offset, dev, gen):
+    """An [n, w] piece viewed ``offset`` values into its storage: its
+    address is off a 16-byte boundary unless 4 divides ``offset``."""
+    flat = torch.randint(-2**31, 2**31 - 1, (offset + n * w,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    return flat[offset:].view(n, w)
+
+
 def _check_G3(dev, gen):
+    """G3's largest error against plain: (column mode, row mode)."""
     from genparticlefilters_tpu_torch.ops.gather import (
-        gather_cols, gather_cols_plain, gather_rows, gather_rows_plain)
+        gather_cols, gather_cols_plain, gather_rows, gather_rows_plain,
+        _vector_width)
     from genparticlefilters_tpu_torch.smc.resample import (
         systematic_F, _F_to_parents)
 
@@ -335,8 +419,7 @@ def _check_G3(dev, gen):
         return torch.randperm(n, generator=gen, device=dev).to(torch.int32)
 
     def rows(widths, n):
-        return [torch.randint(-2**31, 2**31 - 1, (n, w), generator=gen,
-                              device=dev, dtype=torch.int32) for w in widths]
+        return lambda: _row_pieces(widths, n, dev, gen)
     n_wide = 16 * T_WIDE + 2
     cases = [  # (label, mode, pieces, parents)
         ("config-5 widths, clustered parents (systematic)", "cols",
@@ -355,12 +438,28 @@ def _check_G3(dev, gen):
          lambda: clustered(8192, 8192)),
         ("extreme bit patterns", "cols", lambda: _extreme_pieces(4096, dev),
          lambda: perm(4096)),
-        ("row mode [N, 8]", "rows", lambda: rows((8,), N_MAIN),
+        ("[N, 8], a permutation", "rows", rows((8,), N_MAIN),
          lambda: perm(N_MAIN)),
-        ("row mode [N, 1], clustered", "rows", lambda: rows((1,), N_MAIN),
+        ("[N, 1], clustered", "rows", rows((1,), N_MAIN),
          lambda: clustered(N_MAIN, N_MAIN)),
+        ("widths 1, 3, 4, 8, 12, 16 in one call, a permutation", "rows",
+         rows((1, 3, 4, 8, 12, 16), N_MAIN), lambda: perm(N_MAIN)),
+        ("widths 1, 8, 16 at 1M, clustered", "rows", rows((1, 8, 16), N_C5),
+         lambda: clustered(N_C5, N_C5)),
+        ("[N, 8] and [N, 16] views 4 bytes off a 16-byte boundary", "rows",
+         lambda: [_offset_rows(N_MAIN, 8, 1, dev, gen),
+                  _offset_rows(N_MAIN, 16, 3, dev, gen)],
+         lambda: perm(N_MAIN)),
+        ("M = N/4", "rows", rows((8, 3), 4096),
+         lambda: clustered(4096, 1024)),
+        ("M = 4N", "rows", rows((8, 3), 1024), lambda: clustered(1024, 4096)),
+        (f"width {n_wide}", "rows", rows((n_wide,), 8192),
+         lambda: perm(8192)),
+        ("extreme bit patterns", "rows",
+         lambda: [p.T.contiguous() for p in _extreme_pieces(4096, dev)],
+         lambda: perm(4096)),
     ]
-    max_err = 0
+    max_err = {"cols": 0, "rows": 0}
     for label, mode, make_pieces, make_parents in cases:
         pieces, parents = make_pieces(), make_parents()
         kern, plain = ((gather_cols, gather_cols_plain) if mode == "cols"
@@ -369,22 +468,24 @@ def _check_G3(dev, gen):
         torch.cuda.synchronize()
         refs = plain(pieces, parents)
         torch.cuda.synchronize()
-        max_err = max(max_err, _max_err(outs, refs))
+        max_err[mode] = max(max_err[mode], _max_err(outs, refs))
         if not all(torch.equal(o, r) for o, r in zip(outs, refs)):
-            raise AssertionError(f"G3 differs: {label}")
+            raise AssertionError(f"G3 differs: {mode} {label}")
+        units = ("" if mode == "cols" else ", units " + str([
+            _vector_width(p.shape[1], p.data_ptr(), o.data_ptr())
+            for p, o in zip(pieces, outs)]))
         print(f"[3 G3] {mode} {label}: pieces "
-              f"{[tuple(p.shape) for p in pieces]}, M={parents.shape[0]}: "
-              f"bit-equal to plain")
-    return max_err
+              f"{[tuple(p.shape) for p in pieces]}, M={parents.shape[0]}"
+              f"{units}: bit-equal to plain")
+    return max_err["cols"], max_err["rows"]
 
 
 def phase_kernel_vs_plain():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.manual_seed(0)
-    names = list(KERNELS)
-    return dict(zip(names, (_check_G1(dev, gen), _check_G2(dev, gen),
-                            _check_G3(dev, gen), _check_G4(dev, gen))))
+    return dict(zip(KERNELS, (_check_G1(dev, gen), _check_G2(dev, gen),
+                              *_check_G3(dev, gen), _check_G4(dev, gen))))
 
 
 def _data():
@@ -506,7 +607,6 @@ def _path(label, run, need):
 
 def phase_paths(y_obs):
     """Paths (a)-(e); returns the launch counts of each."""
-    G1, G2, G3, G4 = KERNELS
     seen = {}
     gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa
     st, seen["4a"] = _path(
@@ -571,7 +671,6 @@ def _substate_path(state):
     import genparticlefilters_tpu_torch as g
     from genparticlefilters_tpu_torch.core.batching import tree_take
     from genparticlefilters_tpu_torch.core.tree import tree_leaves
-    G4 = list(KERNELS)[3]
     half = N_MAIN // 2
     lml0 = float(g.log_ml_estimate(state))
     total = {k: 0 for k in KERNELS}
@@ -711,11 +810,39 @@ def _ancestry_ok(old, new):
         tree_leaves(new.traces)) if isinstance(a, torch.Tensor))
 
 
+@contextlib.contextmanager
+def _row_mode_leaves():
+    """Record what ``_gather_traces`` hands to G3's row mode while the block
+    runs: one ``(widths, N, M)`` per call that has pieces."""
+    from genparticlefilters_tpu_torch.smc import resample
+    inner = resample.gather_rows
+    calls = []
+
+    def recorder(pieces, parents):
+        pieces = list(pieces)
+        if pieces:
+            calls.append((tuple(p.shape[1] for p in pieces),
+                          pieces[0].shape[0], parents.shape[0]))
+        return inner(pieces, parents)
+    resample.gather_rows = recorder
+    try:
+        yield calls
+    finally:
+        resample.gather_rows = inner
+
+
+def _print_row_leaves(label, calls):
+    widths = sorted({w for ws, _, _ in calls for w in ws})
+    print(f"[{label} row mode] particle-first leaves of rank >= 2 handed to "
+          f"G3's row mode: {len(calls)} calls, widths {widths}"
+          + ("" if calls else " (every leaf of this state is particle-last: "
+             "the packed store and the score)"))
+
+
 def _config5_path(y):
     """(f): config 5 at N=1M on the resize schedule, then optimal resize to
     N/4, replicate x4 and dereplicate; returns the filter's final state."""
     import genparticlefilters_tpu_torch as g
-    G1, G2, G3, _ = KERNELS
     gen = torch.Generator(device="cuda").manual_seed(500)
     lmls = []
 
@@ -725,7 +852,9 @@ def _config5_path(y):
         rep = g.pf_replicate(opt, 4)
         der = g.pf_dereplicate(gen, rep, 4, method="keepfirst")
         return st, opt, rep, der
-    (st, opt, rep, der), counts = _path(f"4f config 5 N={N_C5}", run, ())
+    with _row_mode_leaves() as calls:
+        (st, opt, rep, der), counts = _path(f"4f config 5 N={N_C5}", run, ())
+    _print_row_leaves("4f", calls)
     need = {G1: 1, G2: 2, G3: 3}
     if any(counts[k] < v for k, v in need.items()):
         raise AssertionError(f"4f launches {counts}, need at least {need}")
@@ -765,7 +894,6 @@ def _wide_pack_path():
     pieces) and systematic at N=1000 (G1)."""
     from genparticlefilters_tpu_torch.models.multi_object import (
         MOTParams, mot_particle_filter)
-    G1, G2, _, _ = KERNELS
     y = _mot_data(T_WIDE, seed=6)
     total = {k: 0 for k in KERNELS}
     for method, n, need in (("multinomial", N_MAIN, G2),
@@ -788,7 +916,6 @@ def _blockwise_path(state):
     """(h): blockwise resampling of the config-5 state in 4 blocks, then
     block rotation and shuffle."""
     import genparticlefilters_tpu_torch as g
-    G1, G2, G3, _ = KERNELS
     K = 4
     n = state.n_particles
     b = n // K
@@ -796,16 +923,19 @@ def _blockwise_path(state):
     tot0 = torch.logsumexp(state.log_weights.reshape(K, b), 1)
     total = {k: 0 for k in KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(502)
+    calls = []
     cases = [("systematic", None, G1), ("residual", None, G1),
              ("multinomial", None, G2), ("stratified", False, G2),
              ("stratified", True, G3)]
     for method, sort, need in cases:
         label = method + ("" if sort is None else
                           " sorted" if sort else " unsorted")
-        out, counts = _path(
-            f"4h blockwise {label} K={K}",
-            lambda: g.pf_resample_blockwise(gen, state, K, method,
-                                            sort_particles=sort), (need,))
+        with _row_mode_leaves() as rec:
+            out, counts = _path(
+                f"4h blockwise {label} K={K}",
+                lambda: g.pf_resample_blockwise(gen, state, K, method,
+                                                sort_particles=sort), (need,))
+        calls += rec
         for k in total:
             total[k] += counts[k]
         moved = float((torch.logsumexp(out.log_weights.reshape(K, b), 1)
@@ -821,7 +951,9 @@ def _blockwise_path(state):
               f"global LML untouched; parents inside their block")
     for label, op in (("rotate", lambda: g.pf_rotate_blocks(state, K, 1)),
                       ("shuffle", lambda: g.pf_shuffle_blocks(state, K))):
-        out, counts = _path(f"4h {label} K={K}", op, (G3,))
+        with _row_mode_leaves() as rec:
+            out, counts = _path(f"4h {label} K={K}", op, (G3,))
+        calls += rec
         for k in total:
             total[k] += counts[k]
         # the LML is a sum over a permuted vector: equal up to float32
@@ -834,6 +966,7 @@ def _blockwise_path(state):
                                  f"apart, or the LML moved {d_lml}")
         print(f"[4h {label}] weights move with their traces; LML moved "
               f"{d_lml:.2e} (limit 1e-4)")
+    _print_row_leaves("4h", calls)
     return total
 
 
@@ -866,12 +999,81 @@ def _mot_da_path():
     return counts
 
 
+def _vector_model():
+    """A model with an 8-wide vector site: x ~ N(0, I_8), y ~ N(sum(x),
+    1). Its x site and return value are [N, 8] leaves, particle axis
+    first."""
+    from genparticlefilters_tpu_torch.core import gen, trace, normal
+
+    @gen
+    def vector_site(mu):
+        x = trace("x", normal(mu, 1.0))
+        trace("y", normal(x.sum(-1), 1.0))
+        return x
+    vector_site.batch_safe = True
+    return vector_site
+
+
+def _vector_site_path():
+    """(j): the vector-site model at N=1M observed at y = 2: sorted
+    stratified resampling, sub-state resampling of the two halves
+    (multinomial, G4), optimal resize to N/4 and block rotation (K=4),
+    each moving the [N, 8] leaves through G3's row mode; the posterior mean
+    of sum(x) against its exact value 8y/9, the LML against log N(y; 0,
+    9), and the ancestry of every result."""
+    import genparticlefilters_tpu_torch as g
+    gen = torch.Generator(device="cuda").manual_seed(504)
+    obs = g.ChoiceMap({("y",): g.Entry(torch.tensor(Y_VEC, device="cuda"),
+                                       True)})
+    st = g.pf_initialize(gen, _vector_model(),
+                         (torch.zeros(D_VEC, device="cuda"),), obs, N_VEC)
+    exact_mean = D_VEC / (D_VEC + 1) * Y_VEC
+    exact_lml = (-0.5 * math.log(2 * math.pi * (D_VEC + 1))
+                 - Y_VEC ** 2 / (2 * (D_VEC + 1)))
+    half = N_VEC // 2
+
+    def run():
+        s = st
+        for blk in (slice(0, half), slice(half, N_VEC)):
+            s = g.pf_resample(gen, s[blk], "multinomial", check=False)
+        return {"sorted stratified": g.pf_resample(gen, st, "stratified",
+                                                   check=False),
+                "sub-states multinomial": s,
+                "optimal resize N/4": g.pf_resize(gen, st, N_VEC // 4,
+                                                  "optimal", check=False),
+                "rotate K=4": g.pf_rotate_blocks(st, 4, 1)}
+    with _row_mode_leaves() as calls:
+        outs, counts = _path(f"4j vector site N={N_VEC}", run, (G3R, G4))
+    _print_row_leaves("4j", calls)
+    lml = float(g.log_ml_estimate(st))
+    for label, s in [("initialized", st)] + list(outs.items()):
+        err = abs(float(g.mean(s, ("x",)).sum()) - exact_mean)
+        d_lml = abs(float(g.log_ml_estimate(s)) - lml)
+        if err >= 0.02 or d_lml >= 1e-3 or (
+                s is not st and not _ancestry_ok(st, s)):
+            raise AssertionError(f"4j {label}: posterior mean of sum(x) off "
+                                 f"by {err}, LML moved {d_lml}, or traces "
+                                 f"!= old traces[parents]")
+        print(f"[4j {label}] N={s.n_particles}: posterior mean of sum(x) "
+              f"within {err:.4f} of 8y/9 (limit 0.02); LML moved "
+              f"{d_lml:.2e} (limit 1e-3)"
+              + ("" if s is st else "; traces == old traces[parents]"))
+    par = outs["sub-states multinomial"].parents.long()
+    if (par[:half].max() >= half or par[half:].min() < half
+            or abs(lml - exact_lml) >= 0.02):
+        raise AssertionError(f"4j: sub-state parents leave their half, or "
+                             f"LML {lml} vs exact {exact_lml}")
+    print(f"[4j] LML {lml:.5f} vs exact {exact_lml:.5f} (limit 0.02); "
+          f"sub-state parents inside their half")
+    return counts
+
+
 def _config5_paths():
-    """Paths (f)-(i); returns the launch counts of each."""
+    """Paths (f)-(j); returns the launch counts of each."""
     y = _mot_data(T_C5)
     st, c5 = _config5_path(y)
     return {"4f": c5, "4g": _wide_pack_path(), "4h": _blockwise_path(st),
-            "4i": _mot_da_path()}
+            "4i": _mot_da_path(), "4j": _vector_site_path()}
 
 
 def _event_ms(fn, reps):
@@ -904,35 +1106,59 @@ def _queued_ms(fn, calls=20):
     return a.elapsed_time(b) / calls
 
 
-def _compare_timing(label, kern, plain, card, mbytes=None):
-    """Kernel against plain, in turns (plain, kernel, kernel, plain)."""
+def _timed(fns, reps=6):
+    """``fns`` ({label: fn}) timed in turns, forward then backward order,
+    ``reps`` times: the medians of the device time per call (20 calls
+    queued) and of one call with the host in the loop, each {label: ms}."""
     for _ in range(3):
-        kern()
-        plain()
+        for fn in fns.values():
+            fn()
     torch.cuda.synchronize()
-    k_call, p_call, k_dev, p_dev = [], [], [], []
-    for _ in range(6):
-        p_call += _event_ms(plain, 2)
-        k_call += _event_ms(kern, 4)
-        p_call += _event_ms(plain, 2)
-        p_dev.append(_queued_ms(plain))
-        k_dev.append(_queued_ms(kern))
-        k_dev.append(_queued_ms(kern))
-        p_dev.append(_queued_ms(plain))
+    order = list(fns) + list(fns)[::-1]
+    dev = {k: [] for k in fns}
+    call = {k: [] for k in fns}
+    for _ in range(reps):
+        for k in order:
+            dev[k].append(_queued_ms(fns[k]))
+            call[k] += _event_ms(fns[k], 2)
     med = statistics.median
-    rate = (f" ({mbytes / 1e3 / (med(k_dev) / 1e3):.0f} GB/s of "
-            f"{mbytes:.1f} MB)" if mbytes else "")
+    return ({k: med(v) for k, v in dev.items()},
+            {k: med(v) for k, v in call.items()})
+
+
+def _compare_timing(label, kern, plain, card, nbytes, library=None):
+    """Kernel against plain and, where one PyTorch call computes the same
+    function, that call (``library``), in turns; the bound is ``nbytes``
+    (each input read once, each output written once) over 3.35 TB/s."""
+    fns = {"kernel": kern, "plain": plain}
+    if library is not None:
+        fns["library"] = library
+    dev, call = _timed(fns)
+    bound = nbytes / HBM_BYTES_PER_MS
+    lib_dev, lib_call = (
+        (f", library {dev['library']:.4f} ms", f", library "
+         f"{call['library']:.4f} ms") if library else ("", ""))
     print(f"[5 {label}: device time per call (20 queued calls, median of "
-          f"{len(k_dev)}) kernel {med(k_dev):.4f} ms{rate}, plain "
-          f"{med(p_dev):.4f} ms; one call with the host in the loop (median "
-          f"of {len(k_call)}) kernel {med(k_call):.4f} ms, plain "
-          f"{med(p_call):.4f} ms; card {card}")
-    return med(k_dev), med(p_dev)
+          f"12) kernel {dev['kernel']:.4f} ms ({nbytes / 1e6:.2f} MB at "
+          f"{nbytes / 1e6 / dev['kernel']:.0f} GB/s; bound {bound:.5f} ms, "
+          f"share {bound / dev['kernel']:.3f}), plain {dev['plain']:.4f} ms"
+          f"{lib_dev}; one call with the host in the loop (median of 12) "
+          f"kernel {call['kernel']:.4f} ms, plain {call['plain']:.4f} ms"
+          f"{lib_call}; card {card}")
+    return {"ms": dev["kernel"], "plain_ms": dev["plain"],
+            "library_ms": dev.get("library"), "bound_ms": bound}
+
+
+def _clustered_parents(n, dev, gen):
+    from genparticlefilters_tpu_torch.smc.resample import (systematic_F,
+                                                           _F_to_parents)
+    return _F_to_parents(
+        systematic_F(gen, _weights("dirichlet", n, dev, gen)), n)
 
 
 def _kernel_timing(n, card):
-    """Device ms of (kernel, plain) for G1, G2, G3 and G4 at n
-    particles."""
+    """``{kernel: {ms, plain_ms, library_ms, bound_ms}}`` for G1, G2, G3
+    (column and row mode) and G4 at n particles."""
     from genparticlefilters_tpu_torch.ops.fused_gather import (
         resample_gather_split, resample_gather_split_plain,
         resample_gather_split_u, resample_gather_split_u_plain)
@@ -940,41 +1166,76 @@ def _kernel_timing(n, card):
         gather_cols, gather_cols_plain, gather_rows, gather_rows_plain)
     from genparticlefilters_tpu_torch.ops.merge_count import (
         merge_count, merge_count_plain)
-    from genparticlefilters_tpu_torch.smc.resample import (systematic_F,
-                                                           _F_to_parents)
+    from genparticlefilters_tpu_torch.smc.resample import systematic_F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     pieces = _pieces(WIDTHS, n, dev, gen)
-    mb = 2 * sum(WIDTHS) * 4 * n / 1e6
+    rows = sum(WIDTHS)
     F = systematic_F(gen, _weights("dirichlet", n, dev, gen))
     c, u = _brackets(n, n, "plain", dev, gen)
     c5_pieces = _pieces(WIDTHS_C5, n, dev, gen)
-    c5_parents = _F_to_parents(F, n)
-    c5_mb = (2 * sum(WIDTHS_C5) + 1) * 4 * n / 1e6
-    rows8 = [torch.randint(-2**31, 2**31 - 1, (n, 8), generator=gen,
-                           device=dev, dtype=torch.int32)]
+    c5_parents = _clustered_parents(n, dev, gen)
+    rows8 = _row_pieces((8,), n, dev, gen)
     perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
-    _compare_timing(f"G3 row mode] N={n} [N, 8] permutation",
-                    lambda: gather_rows(rows8, perm),
-                    lambda: gather_rows_plain(rows8, perm), card,
-                    (2 * 8 + 1) * 4 * n / 1e6)
-    G1, G2, G3, G4 = KERNELS
+    idx = perm.long()
     return {
+        G3R: _compare_timing(
+            f"G3 row mode] N={n} [N, 8] permutation",
+            lambda: gather_rows(rows8, perm),
+            lambda: gather_rows_plain(rows8, perm), card, (2 * 8 + 1) * 4 * n,
+            lambda: torch.index_select(rows8[0], 0, idx)),
         G3: _compare_timing(
             f"G3] N={n} widths={WIDTHS_C5} clustered parents",
             lambda: gather_cols(c5_pieces, c5_parents),
-            lambda: gather_cols_plain(c5_pieces, c5_parents), card, c5_mb),
+            lambda: gather_cols_plain(c5_pieces, c5_parents), card,
+            (2 * sum(WIDTHS_C5) + 1) * 4 * n),
         G1: _compare_timing(
             f"G1] N={n} widths={WIDTHS}",
             lambda: resample_gather_split(pieces, F),
-            lambda: resample_gather_split_plain(pieces, F), card, mb),
+            lambda: resample_gather_split_plain(pieces, F), card,
+            (2 * rows + 2) * 4 * n),
         G2: _compare_timing(
             f"G2] N={n} widths={WIDTHS}",
             lambda: resample_gather_split_u(pieces, c, u),
-            lambda: resample_gather_split_u_plain(pieces, c, u), card, mb),
+            lambda: resample_gather_split_u_plain(pieces, c, u), card,
+            (2 * rows + 3) * 4 * n),
         G4: _compare_timing(
             f"G4] n=m={n}", lambda: merge_count(c, u),
-            lambda: merge_count_plain(c, u), card)}
+            lambda: merge_count_plain(c, u), card, 12 * n,
+            lambda: torch.searchsorted(u, c, right=True, out_int32=True))}
+
+
+G3R_TIMED = [(w, kind) for w in (1, 8, 16)
+             for kind in ("permutation", "clustered")]
+
+
+def _skewed_timing(card):
+    """G4 at the skewed inputs and G3's row mode at widths 1, 8 and 16,
+    each at 1M, against plain and the library call."""
+    from genparticlefilters_tpu_torch.ops.gather import (gather_rows,
+                                                         gather_rows_plain)
+    from genparticlefilters_tpu_torch.ops.merge_count import (
+        merge_count, merge_count_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for n, m, kind in G4_SKEWED:
+        c, u = _g4_inputs(n, m, kind, dev, gen)
+        _compare_timing(f"G4] n={n} m={m} {kind}", lambda: merge_count(c, u),
+                        lambda: merge_count_plain(c, u), card,
+                        8 * n + 4 * m,
+                        lambda: torch.searchsorted(u, c, right=True,
+                                                   out_int32=True))
+    for w, kind in G3R_TIMED:
+        x = _row_pieces((w,), N_C5, dev, gen)
+        par = (torch.randperm(N_C5, generator=gen, device=dev).to(torch.int32)
+               if kind == "permutation"
+               else _clustered_parents(N_C5, dev, gen))
+        idx = par.long()
+        _compare_timing(f"G3 row mode] N={N_C5} [N, {w}] {kind}",
+                        lambda: gather_rows(x, par),
+                        lambda: gather_rows_plain(x, par), card,
+                        (2 * w + 1) * 4 * N_C5,
+                        lambda: torch.index_select(x[0], 0, idx))
 
 
 def _profile_filter(run, y_obs, n, per_run, label, card):
@@ -1029,6 +1290,7 @@ def _sync_count(run, y_obs, n):
 def phase_timing(y_obs, card):
     kern_ms = _kernel_timing(N_MAIN, card)
     _kernel_timing(1_000_000, card)
+    _skewed_timing(card)
     dev = torch.device("cuda")
     methods = ("systematic", "residual", "multinomial")
     for n in (N_MAIN, 1_000_000):
@@ -1119,7 +1381,114 @@ def _config5_timing(card):
     _profile_filter(run, y, N_C5, per_run, "config 5", card)
 
 
+def _earlier_libraries(src_dir):
+    """Build ``src_dir``'s merge_count.cu and gather_parents.cu side by
+    side under other library names and bind their C entry points: G4's and
+    G3's column mode as today, G3's row mode without its unit table
+    (``gather_rows(src, dst, cols, n_pieces, parents, n, m, stream)``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from genparticlefilters_tpu_torch.ops.build import (BUILD_DIR,
+                                                        NVCC_FLAGS, _nvcc)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def build(name):
+        out = BUILD_DIR / f"libearlier_{name}.so"
+        proc = subprocess.run([_nvcc()] + NVCC_FLAGS + [
+            "-o", str(out), os.path.join(src_dir, f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src_dir}/{name}.cu:\n"
+                               f"{proc.stderr}")
+        return ctypes.CDLL(str(out))
+    with ThreadPoolExecutor(2) as pool:
+        g4, g3 = pool.map(build, ("merge_count", "gather_parents"))
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    g4.merge_count.argtypes = [vp, ll, vp, ll, vp, vp]
+    for fn in (g3.gather_cols, g3.gather_rows):
+        fn.argtypes = [vp, vp, vp, ctypes.c_int, vp, ll, ll, vp]
+    for fn in (g4.merge_count, g3.gather_cols, g3.gather_rows):
+        fn.restype = ctypes.c_int
+    return g4, g3
+
+
+def phase_against(src_dir, card):
+    """(6): the earlier G4 and G3 of ``src_dir`` against this tree's, in
+    turns (earlier, this, this, earlier), each first checked bit-equal."""
+    from genparticlefilters_tpu_torch.ops.fused_gather import _launch_tables
+    from genparticlefilters_tpu_torch.ops.gather import (gather_cols,
+                                                         gather_rows)
+    from genparticlefilters_tpu_torch.ops.merge_count import merge_count
+    g4, g3 = _earlier_libraries(src_dir)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def earlier_g4(c, u):
+        F = torch.empty_like(c, dtype=torch.int32)
+        if g4.merge_count(c.data_ptr(), c.shape[0], u.data_ptr(),
+                          u.shape[0], F.data_ptr(), stream()):
+            raise RuntimeError("earlier merge_count launch failed")
+        return F
+
+    def earlier_g3(fn, axis):
+        def call(pieces, parents):
+            m = parents.shape[0]
+            outs = [torch.empty((m, p.shape[1]) if axis == 0
+                                else (p.shape[0], m), dtype=torch.int32,
+                                device=dev) for p in pieces]
+            tables = _launch_tables(pieces, outs,
+                                    [p.shape[1 - axis] for p in pieces])
+            if fn(*tables, len(pieces), parents.data_ptr(),
+                  pieces[0].shape[axis], m, stream()):
+                raise RuntimeError("earlier G3 launch failed")
+            return outs
+        return call
+    earlier_rows = earlier_g3(g3.gather_rows, 0)
+    earlier_cols = earlier_g3(g3.gather_cols, 1)
+
+    def ab(label, earlier, this, nbytes):
+        a, b = earlier(), this()
+        same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else all(torch.equal(x, y) for x, y in zip(a, b)))
+        if not same:
+            raise AssertionError(f"6 {label}: earlier and this differ")
+        dev_ms, call_ms = _timed({"earlier": earlier, "this": this})
+        bound = nbytes / HBM_BYTES_PER_MS
+        print(f"[6 {label}] device time per call (20 queued calls, median "
+              f"of 12): earlier {dev_ms['earlier']:.4f} ms (share "
+              f"{bound / dev_ms['earlier']:.3f}), this {dev_ms['this']:.4f} "
+              f"ms (share {bound / dev_ms['this']:.3f}), bound {bound:.5f} "
+              f"ms; one call with the host in the loop: earlier "
+              f"{call_ms['earlier']:.4f} ms, this {call_ms['this']:.4f} ms; "
+              f"bit-equal; card {card}")
+    for n, m, kind in [(N_MAIN, N_MAIN, "plain"),
+                       (1_000_000, 1_000_000, "plain"), *G4_SKEWED]:
+        c, u = _g4_inputs(n, m, kind, dev, gen)
+        ab(f"G4 n={n} m={m} {kind}", lambda: earlier_g4(c, u),
+           lambda: merge_count(c, u), 8 * n + 4 * m)
+    for n, w, kind in [(N_MAIN, 8, "permutation"), (N_MAIN, 8, "clustered")] \
+            + [(N_C5, w, kind) for w, kind in G3R_TIMED]:
+        x = _row_pieces((w,), n, dev, gen)
+        par = (torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+               if kind == "permutation" else _clustered_parents(n, dev, gen))
+        ab(f"G3 row mode N={n} [N, {w}] {kind}", lambda: earlier_rows(x, par),
+           lambda: gather_rows(x, par), (2 * w + 1) * 4 * n)
+    for n in (N_MAIN, N_C5):
+        pieces = _pieces(WIDTHS_C5, n, dev, gen)
+        par = _clustered_parents(n, dev, gen)
+        ab(f"G3 column mode N={n} widths={WIDTHS_C5} clustered",
+           lambda: earlier_cols(pieces, par), lambda: gather_cols(pieces, par),
+           (2 * sum(WIDTHS_C5) + 1) * 4 * n)
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", metavar="DIR",
+                        help="time DIR's merge_count.cu and gather_parents.cu"
+                             " against this tree's (phase 6)")
+    args = parser.parse_args()
     phase_environment()
     card = _card_line()
     phase_build()
@@ -1128,15 +1497,17 @@ def main():
     g1_launches = phase_main_path(y_obs)
     seen = phase_paths(y_obs)
     kern_ms = phase_timing(y_obs, card)
-    G1, G2, G3, G4 = KERNELS
+    if args.against:
+        phase_against(args.against, card)
     launches = {G1: g1_launches,
                 G2: seen["4a"][G2],
                 G3: seen["4f"][G3],
+                G3R: seen["4j"][G3R],
                 G4: seen["4d"][G4]}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[name], "max_abs_err": max_err[name],
-        "ms": kern_ms[name][0], "plain_ms": kern_ms[name][1]}
+        **kern_ms[name], "bound_by": "bytes"}
         for name, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

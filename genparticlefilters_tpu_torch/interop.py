@@ -41,13 +41,19 @@ from .smc.initialize import pf_initialize
 __all__ = ["state_from_numpy", "state_to_numpy"]
 
 
-def state_from_numpy(model, arrays, model_args, observations, device=None):
+def state_from_numpy(model, arrays, model_args, observations,
+                     device="cuda"):
     """The port's ``ParticleFilterState`` of ``model`` holding ``arrays``
-    (the JAX state's leaves as numpy arrays, in its order). ``model_args``
-    and ``observations`` are those the state was initialized with: they fix
-    which sites are stored shared, hence the storage layout."""
+    (the JAX state's leaves as numpy arrays, in its order), on ``device``:
+    the card unless the caller asks for the CPU (``device="cpu"``); with no
+    card, the default raises. ``model_args`` and ``observations`` are those
+    the state was initialized with: they fix which sites are stored shared,
+    hence the storage layout."""
     arrays = list(arrays)
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("state_from_numpy: no CUDA card; pass "
+                           "device='cpu' to build the state on the CPU")
     n = int(np.shape(arrays[-3])[0])   # log_weights [N]
     gen = torch.Generator(device=device).manual_seed(0)
     template = pf_initialize(gen, model, model_args, observations, n)

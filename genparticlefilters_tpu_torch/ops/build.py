@@ -6,7 +6,8 @@ under ``genparticlefilters_tpu_torch/_build/`` (git-ignored), named by a
 hash of the source so an edited source rebuilds, and loaded with
 ``ctypes``. :func:`load_libraries` runs one ``nvcc`` per source, all at
 once. Nothing here runs at import time; a missing ``nvcc`` or a failed
-compile raises.
+compile raises. :func:`launch_on` calls a bound entry point on a device's
+current stream.
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 __all__ = ["load_library", "load_libraries", "load_all", "build_info",
-           "NVCC_FLAGS"]
+           "launch_on", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -107,3 +110,14 @@ def build_info(name: str) -> dict:
     seconds (0 when a built library was reused) and nvcc's ``-Xptxas -v``
     report. Raises if the library has not been loaded."""
     return dict(_LOADED[name][1])
+
+
+def launch_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)``, the bound C entry point called with the raw
+    handle of ``device``'s current stream (no ``torch.cuda.Stream`` object
+    is built), on that device. Returns what ``fn`` returns."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

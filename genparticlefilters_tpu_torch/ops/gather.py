@@ -12,17 +12,20 @@ is not checked on the device.
 On a CUDA tensor each wrapper launches the hand-written kernel of
 ``csrc/gather_parents.cu`` once for all pieces (built at first use, see
 ops/build.py); on a CPU tensor it runs its ``*_plain`` version, an
-``index_select`` per piece. There is no other route.
+``index_select`` per piece. There is no other route. Row mode copies a
+piece in 16-byte units where :func:`_vector_width` allows it, else in
+4-byte units.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence
 
 import torch
 
-from .build import load_library
+from .build import launch_on, load_library
 from .fused_gather import _launch_tables
 
 __all__ = ["gather_cols", "gather_cols_plain", "gather_rows",
@@ -32,14 +35,30 @@ _LIB = "gather_parents"
 
 
 def _bind(lib):
-    for name in ("gather_cols", "gather_rows"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p]
+    tail = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p]
+    lib.gather_cols.argtypes = [ctypes.c_void_p] * 3 + tail
+    lib.gather_rows.argtypes = [ctypes.c_void_p] * 4 + tail
+    for fn in (lib.gather_cols, lib.gather_rows):
         fn.restype = ctypes.c_int
     lib.gather_parents_max_pieces.argtypes = []
     lib.gather_parents_max_pieces.restype = ctypes.c_int
+
+
+@functools.cache
+def _library():
+    """(the loaded library, its most pieces per launch)"""
+    lib = load_library(_LIB, _bind)
+    return lib, lib.gather_parents_max_pieces()
+
+
+def _vector_width(width: int, src_ptr: int, dst_ptr: int) -> int:
+    """Row mode's unit for one piece, in int32 values: 4 (16-byte loads and
+    stores) when a row of ``width`` values is whole 16-byte units and both
+    the piece's and its output's addresses are 16-byte aligned; else 1 (a
+    view with a storage offset, a width not a multiple of 4)."""
+    return 4 if width % 4 == 0 and src_ptr % 16 == 0 \
+        and dst_ptr % 16 == 0 else 1
 
 
 def _check(pieces: Sequence[torch.Tensor], parents: torch.Tensor,
@@ -87,21 +106,24 @@ def _launch(name, pieces, parents, axis, out_shape):
     dev = parents.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda tensors, not {dev}")
-    lib = load_library(_LIB, _bind)
-    if len(pieces) > lib.gather_parents_max_pieces():
+    lib, max_pieces = _library()
+    if len(pieces) > max_pieces:
         raise ValueError(f"{len(pieces)} pieces exceed the kernel's "
-                         f"{lib.gather_parents_max_pieces()}")
+                         f"{max_pieces}")
     m = parents.shape[0]
     outs = [torch.empty(out_shape(p, m), dtype=torch.int32, device=dev)
             for p in pieces]
     widths = [p.shape[1 - axis] for p in pieces]
     if m == 0 or not any(widths):
         return outs, False
-    src, dst, widths = _launch_tables(pieces, outs, widths)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(src, dst, widths, len(pieces),
-                                 parents.data_ptr(), n, m, stream)
+    tables = list(_launch_tables(pieces, outs, widths))
+    if axis == 0:
+        vec = (ctypes.c_int32 * len(pieces))(*[
+            _vector_width(w, p.data_ptr(), o.data_ptr())
+            for w, p, o in zip(widths, pieces, outs)])
+        tables.append(ctypes.cast(vec, ctypes.c_void_p))
+    err = launch_on(dev, getattr(lib, name), *tables, len(pieces),
+                    parents.data_ptr(), n, m)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return outs, True

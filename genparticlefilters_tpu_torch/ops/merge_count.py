@@ -3,7 +3,10 @@
 ``merge_count(c, u)`` takes ascending non-negative float32 ``c [n]`` and
 ascending float32 ``u [m]`` (values below 2.0) and returns int32
 ``F [n]``, ``F_i = #{j : u_j <= c_i}`` (ties count). It is the core of the
-sort-free multinomial and residual hit counts (smc/resample.py).
+sort-free multinomial and residual hit counts (smc/resample.py). A float32
+cumsum computed on the card can dip by an ulp; the kernel then counts for
+the running maximum of ``c``, which is what the callers' cummax of ``F``
+(``_pinned_F``) makes of the plain per-element count.
 
 On a CUDA tensor it launches the hand-written kernel of
 ``csrc/merge_count.cu`` (built at first use, see ops/build.py); on a CPU
@@ -14,10 +17,11 @@ PyTorch. There is no other route.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .build import load_library
+from .build import launch_on, load_library
 
 __all__ = ["merge_count", "merge_count_plain"]
 
@@ -29,6 +33,11 @@ def _bind(lib):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+
+
+@functools.cache
+def _library():
+    return load_library(_LIB, _bind)
 
 
 def _check(c: torch.Tensor, u: torch.Tensor):
@@ -57,15 +66,13 @@ def merge_count(c: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if c.device.type != "cuda":
         raise ValueError(f"merge_count runs on cpu or cuda tensors, not "
                          f"{c.device}")
-    lib = load_library(_LIB, _bind)
+    lib = _library()
     n, m = c.shape[0], u.shape[0]
     F = torch.empty((n,), dtype=torch.int32, device=c.device)
     if n == 0:
         return F
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream(c.device).cuda_stream
-        err = lib.merge_count(c.data_ptr(), n, u.data_ptr(), m, F.data_ptr(),
-                              stream)
+    err = launch_on(c.device, lib.merge_count, c.data_ptr(), n, u.data_ptr(),
+                    m, F.data_ptr())
     if err != 0:
         raise RuntimeError(f"merge_count launch failed: CUDA error {err}")
     merge_count.launches += 1

@@ -58,7 +58,7 @@ def _mot_pair(n=512, seed=0, t_max=3, k=2):
     tst = state_from_numpy(
         tmot.make_mot_model(t_max, tmot.MOTParams(n_objects=k)),
         _leaves(jst), (t_max, torch.zeros((k, 2))),
-        tmot.mot_obs_dense(torch.from_numpy(y)))
+        tmot.mot_obs_dense(torch.from_numpy(y)), device="cpu")
     return jst, tst
 
 

@@ -98,6 +98,78 @@ def test_gather_rows_matches_dma_row_kernel_on_float_bits():
         np.int32), ref.view(np.int32))
 
 
+ROW_WIDTHS = (1, 3, 4, 8, 12, 16)
+
+
+def _offset_piece(rng, n, w, offset):
+    """An [n, w] int32 piece that is a contiguous view ``offset`` values
+    into its storage (a sub-state or sliced leaf): its address is not
+    16-byte aligned unless ``offset`` is a multiple of 4."""
+    flat = torch.from_numpy(_ints(rng, (offset + n * w,)))
+    piece = flat[offset:].view(n, w)
+    assert piece.is_contiguous() and piece.storage_offset() == offset
+    return piece
+
+
+@pytest.mark.parametrize("w", ROW_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_rows_widths_match_row_kernels(w, offset):
+    # row 1 (gather._gather_kernel) with arbitrary parents and row 11
+    # (sorted_gather._kernel) with clustered parents, at the widths whose
+    # unit the CUDA kernel picks by width and alignment; offset 1 is a view
+    # whose address is 4 bytes past a 16-byte boundary (the scalar path)
+    n, m = 1024, 256
+    rng = np.random.default_rng(100 * w + offset)
+    piece = _offset_piece(rng, n, w, offset)
+    mat = piece.numpy()
+    arbitrary = rng.integers(0, n, size=m).astype(np.int32)
+    clustered = _sorted_parents(rng, n, m)
+    refs = [(arbitrary, gather_rows_pallas(jnp.asarray(mat),
+                                           jnp.asarray(arbitrary),
+                                           interpret=True)),
+            (clustered, sorted_rows_clustered(jnp.asarray(mat),
+                                              jnp.asarray(clustered),
+                                              interpret=True))]
+    for parents, ref in refs:
+        (out,) = g3.gather_rows([piece], _t(parents))
+        assert out.shape == (m, w) and out.is_contiguous()
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("n,m", [(4096, 1024), (1024, 4096)])
+def test_gather_rows_all_widths_in_one_call(n, m):
+    # every width in one call, one piece a misaligned view; M = N/4, M = 4N
+    rng = np.random.default_rng(n + 7 * m)
+    pieces = [torch.from_numpy(_ints(rng, (n, w))) for w in ROW_WIDTHS]
+    pieces.append(_offset_piece(rng, n, 8, 3))
+    parents = rng.integers(0, n, size=m).astype(np.int32)
+    outs = g3.gather_rows(pieces, _t(parents))
+    for o, p in zip(outs, pieces):
+        np.testing.assert_array_equal(o.numpy(), p.numpy()[parents])
+
+
+@pytest.mark.parametrize("width,src,dst,want", [
+    (8, 0, 0, 4), (4, 16, 4096, 4), (16, 1 << 20, 32, 4),  # 16-byte units
+    (12, 48, 0, 4),
+    (1, 0, 0, 1), (3, 0, 0, 1), (6, 0, 0, 1), (10, 16, 16, 1),  # widths
+    (8, 4, 0, 1), (8, 0, 8, 1), (16, 12, 16, 1),  # addresses off 16 bytes
+])
+def test_row_mode_vector_width(width, src, dst, want):
+    # the wrapper's per-piece unit: 4 int32 values (int4) only for a width
+    # that is whole 16-byte units with both addresses 16-byte aligned
+    assert g3._vector_width(width, src, dst) == want
+
+
+def test_row_mode_vector_width_of_views():
+    # a view's address carries its storage offset: a sub-state whose first
+    # particle is not on a 16-byte boundary takes the scalar path
+    base = torch.empty((64 * 8 + 4,), dtype=torch.int32)
+    assert base.data_ptr() % 16 == 0      # a fresh allocation is aligned
+    for offset, want in ((0, 4), (1, 1), (2, 1), (3, 1), (4, 4)):
+        piece = base[offset:offset + 64 * 8].view(64, 8)
+        assert g3._vector_width(8, piece.data_ptr(), 0) == want
+
+
 def test_extreme_values_and_degenerate_parents():
     n, m = 256, 256
     vals = np.array([EXTREMES] * n, np.int32)          # [N, 8]

@@ -40,7 +40,7 @@ def _pair(t_max, n, seed=0, k=4):
     tst = state_from_numpy(
         tmot.make_mot_model(t_max, tmot.MOTParams(n_objects=k)),
         _leaves(jst), (t_max, torch.zeros((k, 2))),
-        tmot.mot_obs_dense(torch.from_numpy(y)))
+        tmot.mot_obs_dense(torch.from_numpy(y)), device="cpu")
     return jst, tst
 
 
@@ -56,6 +56,25 @@ def test_interop_round_trip_of_a_mot_state():
     for i, (x, y) in enumerate(zip(a, b)):
         np.testing.assert_array_equal(y, x, err_msg=f"leaf {i}")
     assert tuple(tst.traces.inner["store"].mat.shape) == (160, 64)
+
+
+def test_state_from_numpy_defaults_to_the_card():
+    # without ``device`` the state is built on the card, never quietly on
+    # the CPU: with no card the call raises
+    y = np.random.default_rng(0).normal(0.0, 2.0, (4, 4, 2)).astype(
+        np.float32)
+    jst = jg.pf_initialize(jr.key(0), jmot.make_mot_model(4, jmot.MOTParams()),
+                           (4, jnp.zeros((4, 2), jnp.float32)),
+                           jmot.mot_obs_dense(jnp.asarray(y)), 16)
+    args = (tmot.make_mot_model(4, tmot.MOTParams()), _leaves(jst),
+            (4, torch.zeros((4, 2))), tmot.mot_obs_dense(torch.from_numpy(y)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            state_from_numpy(*args)
+        return
+    st = state_from_numpy(*args)
+    assert st.log_weights.device.type == "cuda"
+    assert st.traces.inner["store"].mat.device.type == "cuda"
 
 
 @pytest.mark.parametrize("t_max,rows", [(10, 161), (64, 1025)])

@@ -66,7 +66,8 @@ def _start(seed=1):
     tmodel = tom.make_object_motion(T)
     tx0 = tom.init_state()
     tobs = tom.obs_dense(torch.from_numpy(np.array(y_obs)))
-    tst = state_from_numpy(tmodel, _leaves(jst), (1, tx0), tobs)
+    tst = state_from_numpy(tmodel, _leaves(jst), (1, tx0), tobs,
+                           device="cpu")
     return y_obs, jst, tst, tx0, tobs
 
 
@@ -182,7 +183,8 @@ def test_chain_parity_residual_resample_and_extend():
             tst.traces.inner["store"].mat.numpy()[:, same],
             np.asarray(jst.traces.inner["store"].mat)[:, same])
         if not same.all():   # continue the chain from JAX's ancestry
-            tst = state_from_numpy(tmodel, _leaves(jst), (1, tx0), tobs)
+            tst = state_from_numpy(tmodel, _leaves(jst), (1, tx0), tobs,
+                                   device="cpu")
         _assert_states_match(jst, tst)
 
         mvf, yf = _step_values(rng, np.array(jst.traces.inner["carry"][0]),
@@ -216,7 +218,7 @@ def test_mh_pieces_match_jax():
                            (jg.Extend(1), jg.NoChange()),
                            jom.obs_dense(y_obs), check=False)
     tst = state_from_numpy(tom.make_object_motion(T), _leaves(jst),
-                           (4, tx0), tobs)
+                           (4, tx0), tobs, device="cpu")
     jtr, ttr = jst.traces, tst.traces
     jsel = _window_selection(jg, 4, jnp.arange)
     tsel = _window_selection(tg, 4, torch.arange)

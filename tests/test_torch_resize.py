@@ -65,7 +65,7 @@ def _mot_pair(seed=0, n=N, masked=False):
     jst = jg.pf_initialize(jr.key(seed), jmot.make_mot_model(T, jp),
                            (T, jnp.zeros((K, 2), jnp.float32)), jobs, n)
     tst = state_from_numpy(tmot.make_mot_model(T, tp), _leaves(jst),
-                           (T, torch.zeros((K, 2))), tobs)
+                           (T, torch.zeros((K, 2))), tobs, device="cpu")
     return jst, tst
 
 
@@ -76,7 +76,7 @@ def _om_pair(seed=1, n=N):
                            jom.obs_dense(jnp.asarray(y)), n)
     tst = state_from_numpy(tom.make_object_motion(6), _leaves(jst),
                            (4, tom.init_state()),
-                           tom.obs_dense(torch.from_numpy(y)))
+                           tom.obs_dense(torch.from_numpy(y)), device="cpu")
     return jst, tst
 
 
