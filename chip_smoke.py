@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths once on one CUDA card.
 
-Run from the repository root:  python3 chip_smoke.py [--against DIR]
+Run from the repository root:
+    python3 chip_smoke.py [--against DIR] [--config34-only]
 
 Phases (each prints summary lines; any failure raises, so the exit code is
 non-zero and no result line is printed):
@@ -41,6 +42,27 @@ non-zero and no result line is printed):
    G3's row mode): sorted stratified resampling, sub-state resampling of
    two halves (G4), optimal resize to N/4 and block rotation, each against
    the exact posterior and LML and the ancestry check (G3 rows, G4);
+4k. first, on 1M weights of which 90% are exactly 0, no resampling route
+   (G1, G2, G4, stratified F) picks a zero-weight particle; then config
+   3, the stochastic-volatility filter with move-reweight rejuvenation,
+   N=100K, T=100, window 2 (G1): finite weights, ESS in [1, N], posterior
+   variance of h_{T-1} > 0, and the mean LML of 4 seeds against an
+   independent bootstrap filter written here at N=1M (4 seeds), within
+   6·(combined stderr) + 0.05, every seed within 1 nat;
+4l. config 4, tempered SMC by args-update, N=100K, 50 temperatures, two
+   MH sweeps after each resampling (G1): mean LML of 4 seeds within
+   6·stderr + 0.02 of the quadrature log Z, both modes > 5% of the
+   weight, > 95% of it within 1.2 of a mode;
+4m. config 4 by SMCP³: the same loop with the args-update replaced by
+   pf_update(translator=UpdatingTraceTranslator) (eps ~ N(0, 0.25) both
+   ways, x' = x + eps; G1), the same LML gate; then one translator step
+   with x' = x·exp(eps) at N=100K, whose weights (vmapped jacfwd
+   log-determinants) must equal their float64 recomputation within 5e-4;
+4n. stratified pf_initialize and pf_update on a small plain model at
+   N=100K with exact weights; assess of choices built from Python values
+   scoring on the card with no host sync; and pf_update / pf_rejuvenate (move and
+   reweight) on half views of object-motion states: the other half
+   bit-unchanged, the view as the verb run on the taken block;
 5. timing: each kernel against its plain version and, where one PyTorch
    call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
@@ -52,12 +74,22 @@ non-zero and no result line is printed):
    torch.profiler breakdown of the systematic and residual runs (device
    busy time by kernel, host time by phase); and for config 5 the run
    time, each resize verb's time, the host syncs of one run and a profiler
-   breakdown;
+   breakdown; for configs 3 and 4 (4k, 4l, 4m) the ms per run, a profiler
+   breakdown by sv.*/tm.* span, the host syncs of one run (at most the
+   ESS checks: 99 and 49) and G1's launches per run; the weights' cumsum
+   in float32 and float64; and the cost of the store copy that each
+   windowed SV rejuvenation makes;
+   Configs 3 and 4 are timed in turns beside the object-motion filter
+   twice: at the start of phase 5 and after config 5 (there also with
+   the cyclic GC off and after emptying the allocator's cache);
 6. only with ``--against DIR``: DIR holds earlier versions of
    merge_count.cu and gather_parents.cu (same C entry points as the ones
    they precede); they are built under other library names and timed
    against this tree's G4 and G3 in turns (earlier, this, this, earlier)
    at the shapes of phase 5.
+
+``--config34-only`` builds, times configs 3 and 4 beside object motion
+in its own fresh process, and stops there, with no result line.
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, a JSON line lists each kernel with its launches on
@@ -72,6 +104,7 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -95,7 +128,11 @@ N_VEC, D_VEC, Y_VEC = 1_000_000, 8, 2.0   # path 4j: x ~ N(0, I_8),
 WIDTHS_C5 = (1, 160)            # its pieces: score, mat (16 rows per step)
 T_WIDE = 64                     # 16*64 + 1 = 1025 packed rows: past the
 #                                 TPU lane kernels' 1022-row cap
-SPANS = ("om.", "c5.")          # profiler span prefixes of the filter runs
+N_SV, T_SV = 100_000, 100       # config 3 (BASELINE.json, scripts/sv_bench.py)
+N_SV_REF = 1_000_000            # its independent bootstrap reference
+N_TM, K_TM = 100_000, 50        # config 4: particles, temperatures
+N_STRATA = 100_000              # path 4n
+SPANS = ("om.", "c5.", "sv.", "tm.")   # profiler span prefixes of the runs
 MAX_SYNCS = 9                   # per object-motion run: the 9 ESS checks
 HBM_BYTES_PER_MS = 3.35e9       # the H100 SXM's 3.35 TB/s
 CSRC = "genparticlefilters_tpu_torch/csrc/"
@@ -588,7 +625,7 @@ def phase_main_path(y_obs):
           f"on cuda: launches {_short(counts)}, LML {lml:.4f}, "
           f"mat {tuple(store.mat.shape)} int32 on cuda")
     _posterior_check(_filter("systematic"), y_obs, N_MAIN, "4")
-    return launches
+    return launches, st
 
 
 def _path(label, run, need):
@@ -605,8 +642,8 @@ def _path(label, run, need):
     return out, counts
 
 
-def phase_paths(y_obs):
-    """Paths (a)-(e); returns the launch counts of each."""
+def phase_paths(y_obs, main_state):
+    """Paths (a)-(n); returns the launch counts of each."""
     seen = {}
     gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa
     st, seen["4a"] = _path(
@@ -630,6 +667,7 @@ def phase_paths(y_obs):
     seen["4e"] = _lg_path()
     del st
     seen.update(_config5_paths())
+    seen.update(_config34_paths(y_obs, main_state))
     return seen
 
 
@@ -1076,6 +1114,531 @@ def _config5_paths():
             "4i": _mot_da_path(), "4j": _vector_site_path()}
 
 
+# ---------------------------------------------------------------------------
+# Configs 3 and 4, strata and views (paths 4k-4n)
+# ---------------------------------------------------------------------------
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _sv_setup():
+    """(SVParams, y [T_SV] drawn from the model, the filter as
+    ``run(gen, y, n)``)."""
+    from genparticlefilters_tpu_torch.models.stochastic_volatility import (
+        SVParams, synthesize_sv_data, sv_particle_filter)
+    p = SVParams()
+    y = synthesize_sv_data(_gen(8), T_SV, p)
+    return p, y, lambda gen, y_, n: sv_particle_filter(gen, y_, n, T_SV, p,
+                                                       rejuv_window=2)
+
+
+def _sv_bootstrap_lml(y, n, p, seed):
+    """An independent bootstrap filter of the SV model (no package code):
+    propagate from the prior, weigh by N(y_t; 0, exp(h_t/2)), resample
+    systematically every step; its LML estimate in float64."""
+    gen = _gen(seed)
+    dev = y.device
+    steps = torch.arange(n, device=dev, dtype=torch.float64)
+    h = p.mu + p.sigma / math.sqrt(1 - p.phi ** 2) * torch.randn(
+        n, generator=gen, device=dev)
+    lml = torch.zeros((), dtype=torch.float64, device=dev)
+    for t in range(y.shape[0]):
+        if t > 0:
+            h = p.mu + p.phi * (h - p.mu) + p.sigma * torch.randn(
+                n, generator=gen, device=dev)
+        hd = h.double()
+        lw = (-0.5 * y[t].double() ** 2 * torch.exp(-hd) - 0.5 * hd
+              - 0.5 * math.log(2 * math.pi))
+        lml = lml + torch.logsumexp(lw, 0) - math.log(n)
+        c = torch.cumsum(torch.softmax(lw, 0), 0)
+        u = (torch.rand((), generator=gen, device=dev, dtype=torch.float64)
+             + steps) / n
+        h = h[torch.clamp_max(torch.searchsorted(c, u), n - 1)]
+    return float(lml)
+
+
+def _zero_weight_check():
+    """No resampling route picks a particle of weight 0: nine in ten of
+    1M weights are exactly 0 (a float32 scan of the weights picked such
+    particles on the card, where its blocks join)."""
+    from genparticlefilters_tpu_torch.ops.fused_gather import (
+        resample_gather_split, resample_gather_split_u)
+    from genparticlefilters_tpu_torch.smc import resample as R
+    n = 1_000_000
+    gen = _gen(805)
+    w = torch.distributions.Gamma(torch.full((n,), 0.3, device="cuda"),
+                                  1.0).sample()
+    w = w * (torch.rand(n, generator=gen, device="cuda") < 0.1)
+    w = (w / w.sum()).to(torch.float32)
+    routes = {
+        "systematic (G1)": lambda: resample_gather_split(
+            [], R.systematic_F(gen, w))[1],
+        "residual (G2 count, G1)": lambda: resample_gather_split(
+            [], R.residual_F_fused(gen, w))[1],
+        "multinomial (G2)": lambda: resample_gather_split_u(
+            [], *R.multinomial_cu(gen, w))[1],
+        "stratified (G2)": lambda: resample_gather_split_u(
+            [], *R.stratified_cu(gen, w))[1],
+        "multinomial (G4)": lambda: R.multinomial_parents(gen, w),
+        "residual (G4)": lambda: R.residual_parents(gen, w),
+        "stratified F": lambda: R._F_to_parents(R.stratified_F(gen, w), n)}
+    for label, fn in routes.items():
+        picked = int((w[fn().long()] == 0).sum())
+        if picked:
+            raise AssertionError(f"4k: {label} picked {picked} particles of "
+                                 f"weight 0")
+    # the same systematic draw from a float32 scan of the weights, as the
+    # port summed them before: what the float64 sum guards against
+    u0 = torch.rand((), generator=gen, device="cuda")
+    f32 = R._pinned_F(torch.floor(n * torch.cumsum(w, 0) - u0).to(
+        torch.int32) + 1, n)
+    f32_picks = int((w[R._F_to_parents(f32, n).long()] == 0).sum())
+    print(f"[4k zero weights] N={n}, 90% of weights exactly 0: no route "
+          f"picked one ({', '.join(routes)}); systematic from a float32 "
+          f"scan would have picked {f32_picks}")
+
+
+def _sv_path():
+    """(k): config 3 at N=100K, T=100 against the bootstrap reference."""
+    import genparticlefilters_tpu_torch as g
+    _zero_weight_check()
+    p, y, run = _sv_setup()
+    st, counts = _path(f"4k config 3 SV N={N_SV} T={T_SV}",
+                       lambda: run(_gen(800), y, N_SV), (G1,))
+    ess = float(g.effective_sample_size(st))
+    var = float(g.var(st, (T_SV - 1, "h")))
+    if not (bool(torch.isfinite(st.log_weights).all()) and 1 <= ess <= N_SV
+            and var > 0):
+        raise AssertionError(f"4k: weights not finite, ESS {ess} or "
+                             f"var(h_T-1) {var}")
+    lmls = [float(g.log_ml_estimate(run(_gen(810 + s), y, N_SV)))
+            for s in range(4)]
+    refs = [_sv_bootstrap_lml(y, N_SV_REF, p, 820 + s) for s in range(4)]
+    se = math.sqrt(np.var(lmls) / 4 + np.var(refs) / 4)
+    lim = 6 * se + 0.05
+    diff = abs(np.mean(lmls) - np.mean(refs))
+    # each seed too: one far seed inflates the stderr enough to pass the
+    # mean (resampling that picks zero-weight particles shows as a seed
+    # tens of nats high)
+    far = max(abs(x - np.mean(refs)) for x in lmls)
+    if diff >= lim or far >= 1.0:
+        raise AssertionError(f"4k: LML {lmls} vs bootstrap {refs}")
+    print(f"[4k config 3] N={N_SV} T={T_SV}: ESS {ess:.1f}, var(h_T-1) "
+          f"{var:.4f}; mean LML of 4 seeds {np.mean(lmls):.4f} (sd "
+          f"{np.std(lmls):.4f}) vs an independent bootstrap filter at "
+          f"N={N_SV_REF} {np.mean(refs):.4f} (sd {np.std(refs):.4f}): |diff| "
+          f"{diff:.4f} (limit 6*stderr+0.05 = {lim:.4f}), farthest seed "
+          f"{far:.4f} (limit 1)")
+    return counts
+
+
+def _tm_run(gen, _y, n):
+    from genparticlefilters_tpu_torch.models.tempered import run_tempered_smc
+    return run_tempered_smc(gen, n, n_temps=K_TM, rejuv_iters=2)[0]
+
+
+def _smcp3_translator(beta, scaling=False):
+    """An SMCP³ translator of the tempered model to inverse temperature
+    ``beta``: eps ~ N(0, 0.25) forward and backward, x' = x + eps (or
+    x' = x·exp(eps) with its Jacobian, ``scaling``), eps' = −eps."""
+    import genparticlefilters_tpu_torch as g
+
+    @g.gen
+    def fwd(tr):
+        g.trace("eps", g.normal(0.0, 0.25))
+    fwd.batch_safe = True
+
+    def shift(prev, f):
+        eps, x = f[("eps",)], prev[("x",)]
+        new_x = x * torch.exp(eps) if scaling else x + eps
+        return (g.ChoiceMap({("x",): g.Entry(new_x, True)}),
+                g.ChoiceMap({("eps",): g.Entry(-eps, True)}))
+    io = (dict(continuous_in=(("prev", "x"), ("fwd", "eps")),
+               continuous_out=(("model", "x"), ("bwd", "eps")))
+          if scaling else {})
+    return g.UpdatingTraceTranslator(
+        p_new_args=(beta,), p_argdiffs=(g.UnknownChange(),), q_forward=fwd,
+        q_backward=fwd, transform=g.TraceTransform(shift, **io))
+
+
+def _smcp3_run(gen, _y, n):
+    """tempered_smc's loop with the args-update replaced by an SMCP³
+    translator; the ESS-triggered systematic resampling stays."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.tempered import (
+        make_tempered_model)
+    from genparticlefilters_tpu_torch.utils.spans import span
+    betas = torch.linspace(0.0, 1.0, K_TM, device=gen.device) ** 2
+    with span("tm.initialize"):
+        st = g.pf_initialize(gen, make_tempered_model(), (betas[0],),
+                             g.EMPTY, n)
+    for i in range(1, K_TM):
+        with span("tm.ess_check"):
+            low = bool(g.effective_sample_size(st) < 0.75 * n)
+        if low:
+            with span("tm.resample"):
+                st = g.pf_resample(gen, st, "systematic", check=False)
+        with span("tm.update"):
+            st = g.pf_update(gen, st, translator=_smcp3_translator(betas[i]),
+                             check=False)
+    return st
+
+
+def _tm_lml_gate(label, run, seed):
+    """Mean LML of 4 seeds within 6·stderr + 0.02 of the quadrature."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.tempered import tempered_log_z
+    lz = tempered_log_z()
+    lmls = [float(g.log_ml_estimate(run(_gen(seed + s), None, N_TM)))
+            for s in range(4)]
+    lim = 6 * np.std(lmls) / 2 + 0.02
+    diff = abs(np.mean(lmls) - lz)
+    if diff >= lim:
+        raise AssertionError(f"{label}: LMLs {lmls} vs log Z {lz}")
+    print(f"[{label}] N={N_TM} temperatures={K_TM}: mean LML of 4 seeds "
+          f"{np.mean(lmls):.4f} (sd {np.std(lmls):.4f}) vs quadrature log Z "
+          f"{lz:.4f}: |diff| {diff:.4f} (limit 6*stderr+0.02 = {lim:.4f})")
+
+
+def _tempered_paths():
+    """(l) and (m): config 4 by args-update and by SMCP³."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.tempered import MODES
+    st, c_l = _path(f"4l config 4 args-update N={N_TM} K={K_TM}",
+                    lambda: _tm_run(_gen(830), None, N_TM), (G1,))
+    xs = g.batched_choice(st, "x")
+    w = g.get_norm_weights(st)
+    lo, hi = float(w[xs < 0].sum()), float(w[xs >= 0].sum())
+    near = float(w[((xs[:, None] - torch.tensor(MODES, device="cuda")).abs()
+                    < 1.2).any(1)].sum())
+    if not (lo > 0.05 and hi > 0.05 and near > 0.95):
+        raise AssertionError(f"4l: mode weights {lo}, {hi}; near {near}")
+    print(f"[4l config 4] weight on the two modes {lo:.3f}, {hi:.3f} (each "
+          f"> 0.05), within 1.2 of a mode {near:.4f} (> 0.95)")
+    _tm_lml_gate("4l config 4", _tm_run, 840)
+    _, c_m = _path(f"4m config 4 SMCP3 N={N_TM} K={K_TM}",
+                   lambda: _smcp3_run(_gen(850), None, N_TM), (G1,))
+    _tm_lml_gate("4m config 4 SMCP3", _smcp3_run, 860)
+    _scaling_step()
+    return {"4l": c_l, "4m": c_m}
+
+
+def _scaling_step():
+    """One SMCP³ step x' = x·exp(eps) at N=100K: its weights (vmapped
+    jacfwd log-determinants) against their float64 recomputation."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.tempered import (
+        make_tempered_model, MODES, MODE_SCALE, PRIOR_LOC, PRIOR_SCALE)
+    b0, b1 = 0.2, 0.9
+    gen = _gen(870)
+    st = g.pf_initialize(gen, make_tempered_model(),
+                         (torch.tensor(b0, device="cuda"),), g.EMPTY, N_TM)
+    st2 = g.pf_update(gen, st, translator=_smcp3_translator(
+        torch.tensor(b1, device="cuda"), scaling=True), check=False)
+    x0 = g.batched_choice(st, "x").double().cpu().numpy()
+    x1 = g.batched_choice(st2, "x").double().cpu().numpy()
+    eps = np.log(x1 / x0)
+
+    def lpn(v, mu, s):
+        return -0.5 * ((v - mu) / s) ** 2 - math.log(s) - 0.5 * math.log(
+            2 * math.pi)
+
+    def score(x, beta):
+        lik = np.logaddexp(*[lpn(x, m, MODE_SCALE) for m in MODES])
+        return lpn(x, PRIOR_LOC, PRIOR_SCALE) + beta * (lik - math.log(2))
+    want = (score(x1, b1) - score(x0, b0) + eps - lpn(eps, 0, 0.25)
+            + lpn(-eps, 0, 0.25))
+    got = (st2.log_weights - st.log_weights).double().cpu().numpy()
+    err = float(np.max(np.abs(got - want)))
+    if not err < 5e-4:
+        raise AssertionError(f"4m scaling step: weights off by {err}")
+    print(f"[4m scaling step] N={N_TM} x' = x*exp(eps): weights vs float64 "
+          f"recomputation max |err| {err:.2e} (limit 5e-4)")
+
+
+def _strata_model():
+    """a ~ U{0,1,2}, c ~ Bern(0.4), x ~ N(a + 0.5c, 1) and, from n = 2,
+    b ~ Bern(0.3) and z ~ N(x + 2b, 0.5)."""
+    import genparticlefilters_tpu_torch as g
+
+    @g.gen
+    def model(n):
+        a = g.trace("a", g.uniform_discrete(0, 2))
+        c = g.trace("c", g.bernoulli(0.4))
+        x = g.trace("x", g.normal(a + torch.where(c, 0.5, 0.0), 1.0))
+        if n >= 2:
+            b = g.trace("b", g.bernoulli(0.3))
+            g.trace("z", g.normal(x + torch.where(b, 2.0, 0.0), 0.5))
+        return x
+    model.batch_safe = True
+    return model
+
+
+def _strata_check():
+    """Stratified pf_initialize (a x c, 6 strata, contiguous) and a
+    stratified pf_update adding b and z (2 strata, interleaved) at
+    N=100K: every choice is fixed, so every weight is exact."""
+    import genparticlefilters_tpu_torch as g
+    n = N_STRATA
+    obs = g.ChoiceMap({("x",): g.Entry(torch.tensor(0.7, device="cuda"))})
+    st = g.pf_initialize(_gen(880), _strata_model(), (1,), obs, n,
+                         strata=g.choiceproduct(("a", [0, 1, 2]),
+                                                ("c", [False, True])))
+    st2 = g.pf_update(_gen(881), st, (2,), (g.UnknownChange(),),
+                      g.ChoiceMap({("z",): g.Entry(torch.tensor(
+                          1.5, device="cuda"))}),
+                      strata=g.choiceproduct(("b", [False, True])))
+    a, c, b = (g.batched_choice(st2, k).double() for k in ("a", "c", "b"))
+
+    def lpn(v, mu, s):
+        return -0.5 * ((v - mu) / s) ** 2 - math.log(s) - 0.5 * math.log(
+            2 * math.pi)
+
+    def lpb(v, q):
+        return v * math.log(q) + (1 - v) * math.log(1 - q)
+    w1 = (math.log(1 / 3) + lpb(c, 0.4) + lpn(0.7, a + 0.5 * c, 1.0)
+          + math.log(6))
+    w2 = w1 + lpb(b, 0.3) + lpn(1.5, 0.7 + 2 * b, 0.5) + math.log(2)
+    err = max(float((st.log_weights.double() - w1).abs().max()),
+              float((st2.log_weights.double() - w2).abs().max()))
+    blk = n // 6
+    k = (torch.arange(6 * blk, device="cuda") // blk).double()
+    layout_ok = (torch.equal((a * 2 + c)[:6 * blk], k) and torch.equal(
+        b, (torch.arange(n, device="cuda") % 2).double()))
+    if not (err < 1e-4 and layout_ok):
+        raise AssertionError(f"4n strata: weights off by {err}, layout "
+                             f"{layout_ok}")
+    print(f"[4n strata] N={n}: stratified pf_initialize (6 strata, "
+          f"contiguous) and pf_update adding b, z (2 strata, interleaved): "
+          f"weights vs exact max |err| {err:.2e} (limit 1e-4); strata laid "
+          f"out as asked")
+
+
+def _assess_check():
+    """assess of choices built from Python values, given an argument on
+    the card, scores on the card with no host sync, and exactly."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.tempered import (
+        make_tempered_model, MODES, MODE_SCALE, PRIOR_LOC, PRIOR_SCALE)
+    beta, x = 0.5, 0.3
+    args = (torch.full((), beta, device="cuda"),)
+    (r, s), syncs = _synced(lambda: g.assess(
+        make_tempered_model(), args, g.choicemap(("x", x), ("lik", 0.0))))
+
+    def lpn(v, mu, sd):
+        return -0.5 * ((v - mu) / sd) ** 2 - math.log(sd) - 0.5 * math.log(
+            2 * math.pi)
+    lik = np.logaddexp(*[lpn(x, m, MODE_SCALE) for m in MODES]) - math.log(2)
+    err = abs(float(s) - (lpn(x, PRIOR_LOC, PRIOR_SCALE) + beta * lik))
+    if s.device.type != "cuda" or r.device.type != "cuda" or syncs \
+            or not err < 1e-5:
+        raise AssertionError(f"4n assess: score on {s.device}, retval on "
+                             f"{r.device}, syncs {syncs}, |err| {err}")
+    print(f"[4n assess] choices from Python values, args on the card: "
+          f"score on {s.device}, no host sync, |err| {err:.2e} (limit 1e-5)")
+
+
+def _om_short_state(y_obs):
+    """The object-motion filter of path 4 stopped one step short of T (the
+    path-4 state has no step left to extend)."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        make_object_motion, init_state, obs_dense)
+    gen = _gen(890)
+    x0, obs = init_state("cuda"), obs_dense(y_obs)
+    st = g.pf_initialize(gen, make_object_motion(T_MAIN), (1, x0), obs,
+                         N_MAIN)
+    for t in range(1, T_MAIN - 1):
+        if bool(g.effective_sample_size(st) < 0.5 * N_MAIN):
+            st = g.pf_resample(gen, st, "systematic", check=False)
+        st = g.pf_update(gen, st, (t + 1, x0), (g.Extend(1), g.NoChange()),
+                         obs, check=False)
+    return st, x0, obs
+
+
+def _view_check(label, state, verb):
+    """``verb(gen, view)`` on the first half of ``state``: particles of
+    the other half come back bit-equal, the view's as ``verb`` run on the
+    taken block with the same seed returns them."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.core.batching import (
+        tree_take, flatten_with_axes)
+    n = state.n_particles
+    view = state[0:n // 2]
+    idx, rest = view.idxs.long(), torch.arange(n // 2, n, device="cuda")
+    out = verb(_gen(895), view)
+    ref = verb(_gen(895), g.ParticleFilterState(
+        view.traces, view.log_weights, state.log_ml_est, view.parents))
+    leaves, axes, _ = flatten_with_axes(state.traces)
+    outs = flatten_with_axes(out.traces)[0]
+    refs = flatten_with_axes(ref.traces)[0]
+    moved = 0
+    for x, ax, o, r in zip(leaves, axes, outs, refs):
+        if ax is None or not isinstance(x, torch.Tensor) or x.dim() <= ax:
+            continue
+        if not torch.equal(o.index_select(ax, rest),
+                           x.index_select(ax, rest)):
+            raise AssertionError(f"4n {label}: the other half changed")
+        if not torch.equal(o.index_select(ax, idx), r):
+            raise AssertionError(f"4n {label}: the view differs from the "
+                                 f"verb on the block")
+        moved += int((o.index_select(ax, idx) != x.index_select(ax, idx))
+                     .any())
+    if not (torch.equal(out.log_weights[rest], state.log_weights[rest])
+            and torch.equal(out.log_weights[idx], ref.log_weights)):
+        raise AssertionError(f"4n {label}: weights")
+    print(f"[4n view] {label} on half of N={n}: other half bit-unchanged; "
+          f"the view bit-equal to the verb on the taken block ({moved} "
+          f"particle leaves changed)")
+
+
+def _views_check(main_state, y_obs):
+    import genparticlefilters_tpu_torch as g
+    steps = torch.arange(T_MAIN, device="cuda")
+    m = (steps == T_MAIN - 2) | (steps == T_MAIN - 1)
+    sel = g.Selection({("moving",): m, ("y",): m})
+    _view_check("pf_rejuvenate move (mh, window 2) of the path-4 state",
+                main_state, lambda gen, s: g.pf_rejuvenate(
+                    gen, s, g.mh, (sel,), window=2))
+    _view_check("pf_rejuvenate reweight (move_reweight, window 2) of the "
+                "path-4 state", main_state, lambda gen, s: g.pf_rejuvenate(
+                    gen, s, g.move_reweight, (sel,), window=2,
+                    method="reweight"))
+    short, x0, obs = _om_short_state(y_obs)
+    _view_check(f"pf_update Extend(1) of the path-4 model at t={T_MAIN - 1}",
+                short, lambda gen, s: g.pf_update(
+                    gen, s, (T_MAIN, x0), (g.Extend(1), g.NoChange()), obs,
+                    check=False))
+
+
+def _config34_paths(y_obs, main_state):
+    """Paths (k)-(n); returns the launch counts of each."""
+    seen = {"4k": _sv_path()}
+    seen.update(_tempered_paths())
+
+    def strata_views():
+        _strata_check()
+        _assess_check()
+        _views_check(main_state, y_obs)
+    _, seen["4n"] = _path("4n strata and views", strata_views, ())
+    return seen
+
+
+def _config34_rows(y_obs):
+    """(label, run, y, n, syncs allowed) of the cells timed together: the
+    object-motion filter (systematic, N=100K) beside configs 3 and 4, so
+    a slow host shows in all of them and a slow config alone."""
+    _, y, sv_run = _sv_setup()
+    return [(f"object motion systematic N={N_MAIN} T={T_MAIN}",
+             _filter("systematic"), y_obs, N_MAIN, MAX_SYNCS),
+            (f"config 3 SV N={N_SV} T={T_SV}", sv_run, y, N_SV, T_SV - 1),
+            (f"config 4 tempered N={N_TM} K={K_TM}", _tm_run, None, N_TM,
+             K_TM - 1),
+            (f"config 4 SMCP3 N={N_TM} K={K_TM}", _smcp3_run, None, N_TM,
+             K_TM - 1)]
+
+
+def _host_state():
+    """What this process carries that could slow its host side: objects
+    the cyclic GC tracks, and the caching allocator's reserved memory."""
+    return (f"{len(gc.get_objects()):,} GC-tracked objects, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+
+
+def _config34_wall(card, when, y_obs, variants=("as is",)):
+    """ms per run of the ``_config34_rows`` cells, in turns run by run
+    (median of 5 after a warm-up, min-max), under each of ``variants``:
+    "as is", "gc off" (the cyclic GC disabled while timing) and "empty
+    cache" (the allocator's cache emptied first). Returns {label: ms} of
+    "as is"."""
+    rows = _config34_rows(y_obs)
+    gen = _gen(900)
+    out = {}
+    for variant in variants:
+        if variant == "empty cache":
+            torch.cuda.empty_cache()
+        state = _host_state()
+        times = {r[0]: [] for r in rows}
+        if variant == "gc off":
+            gc.disable()
+        try:
+            for _ in range(6):
+                for label, run, yy, n, _ in rows:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(gen, yy, n)
+                    torch.cuda.synchronize()
+                    times[label].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            gc.enable()
+        for label, r in times.items():
+            r = r[1:]                       # the first run warms up
+            med = statistics.median(r)
+            if variant == "as is":
+                out[label] = med
+            print(f"[5 wall {when}, {variant}] {label}: {med:.3f} ms/run "
+                  f"(median of 5 after a warm-up, cells in turns; min "
+                  f"{min(r):.3f}, max {max(r):.3f}); {state}; card {card}")
+    return out
+
+
+def _config34_timing(card, y_obs):
+    """Configs 3 and 4 (4k, 4l, 4m): ms per run beside object motion, with
+    the GC off and after emptying the allocator's cache, a profiler
+    breakdown, host syncs of one run and G1's launches per run; then the
+    store copy of each windowed SV rejuvenation."""
+    import genparticlefilters_tpu_torch as g
+    rows = _config34_rows(y_obs)[1:]
+    wall = _config34_wall(card, "after config 5", y_obs,
+                          ("as is", "gc off", "empty cache"))
+    gen = _gen(900)
+    spans = {}
+    for label, run, yy, n, max_syncs in rows:
+        _reset_counts()
+        run(gen, yy, n)
+        torch.cuda.synchronize()
+        print(f"[5 {label}] G1 launches per run {_counts()[G1]}; card {card}")
+        spans[label] = _profile_filter(run, yy, n, wall[label] / 1e3, label,
+                                       card)
+        total, top = _sync_count(run, yy, n)
+        print(f"[5 syncs] {label}: {total} synchronizing CUDA calls in one "
+              f"run (limit {max_syncs}, the ESS checks); by call site: {top}")
+        if total > max_syncs:
+            raise AssertionError(f"{label}: {total} host syncs per run, more "
+                                 f"than the {max_syncs} ESS checks")
+    for n in (N_MAIN, 1_000_000):
+        w = torch.rand(n, generator=gen, device="cuda")
+        w = w / w.sum()
+        dev, _ = _timed({"float32": lambda: torch.cumsum(w, 0),
+                         "float64": lambda: torch.cumsum(
+                             w, 0, dtype=torch.float64)})
+        print(f"[5 scan] the weights' cumsum at n={n}: float32 "
+              f"{dev['float32']:.4f} ms, float64 (what resampling now "
+              f"runs) {dev['float64']:.4f} ms device time (20 queued "
+              f"calls, median of 12); card {card}")
+    _, y, sv_run = _sv_setup()
+    st = sv_run(gen, y, N_SV)
+    steps = torch.arange(T_SV, device="cuda")
+    sel = g.Selection({("h",): steps == T_SV - 1})
+    mat = st.traces.inner["store"].mat
+    dev, call = _timed({
+        "pf_move_reweight": lambda: g.pf_move_reweight(
+            gen, st, g.move_reweight, (sel,), window=2),
+        "store copy": lambda: mat.clone()})
+    nbytes = 2 * mat.numel() * mat.element_size()
+    n_rejuv = spans[rows[0][0]].get("sv.rejuvenate", 0)
+    print(f"[5 store copy] config 3: each windowed rejuvenation copies the "
+          f"packed store mat {tuple(mat.shape)} int32 ({nbytes / 1e6:.1f} MB "
+          f"read+written): copy {dev['store copy']:.4f} ms device time "
+          f"(bound {nbytes / HBM_BYTES_PER_MS:.4f} ms) of "
+          f"{dev['pf_move_reweight']:.4f} ms for the whole pf_move_reweight "
+          f"(20 queued calls, median of 12); one call with the host in the "
+          f"loop {call['pf_move_reweight']:.4f} ms; x {n_rejuv} rejuvenations"
+          f" (sv.rejuvenate spans of the profiled run) = "
+          f"{n_rejuv * dev['store copy']:.3f} ms per run; card {card}")
+
+
 def _event_ms(fn, reps):
     """Per-call time of ``fn`` with the host in the loop: one call between
     two events, the device idle while the host launches."""
@@ -1240,8 +1803,9 @@ def _skewed_timing(card):
 
 def _profile_filter(run, y_obs, n, per_run, label, card):
     """Where a filter run's time goes: device busy time by kernel and host
-    time by phase span (the om.* and c5.* record_function spans), from
-    torch.profiler."""
+    time by phase span (the om.*, c5.*, sv.* and tm.* record_function
+    spans), from torch.profiler. Returns {span: times entered} of the
+    profiled run."""
     from torch.profiler import profile, ProfilerActivity
     gen = torch.Generator(device="cuda").manual_seed(400)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1250,13 +1814,15 @@ def _profile_filter(run, y_obs, n, per_run, label, card):
         torch.cuda.synchronize()
     ka = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
+    counts = {e.key: e.count for e in ka
+              if e.key.startswith(SPANS) and e.device_type != cuda}
     kern = [e for e in ka
             if e.device_type == cuda and not e.key.startswith(SPANS)]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if busy_ms <= 0:
         print(f"[5 profile] {label} N={n}: the profiler showed no device "
               f"time; device busy share not measured")
-        return
+        return counts
     n_kern = sum(e.count for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     tops = "; ".join(f"{e.key[:40]} x{e.count} "
@@ -1274,6 +1840,7 @@ def _profile_filter(run, y_obs, n, per_run, label, card):
         phases.append(f"{e.key} x{e.count} {where} {ms / 1e3:.2f} ms")
     print(f"[5 profile] {label} N={n} by phase (profiled run): "
           f"{'; '.join(phases)}; card {card}")
+    return counts
 
 
 def _sync_count(run, y_obs, n):
@@ -1288,6 +1855,9 @@ def _sync_count(run, y_obs, n):
 
 
 def phase_timing(y_obs, card):
+    # configs 3 and 4 beside object motion, first: the same cells are timed
+    # again after config 5 (_config34_timing)
+    _config34_wall(card, "at the start of phase 5", y_obs)
     kern_ms = _kernel_timing(N_MAIN, card)
     _kernel_timing(1_000_000, card)
     _skewed_timing(card)
@@ -1323,6 +1893,7 @@ def phase_timing(y_obs, card):
             raise AssertionError(f"{method}: {total} host syncs per run, "
                                  f"more than the {MAX_SYNCS} ESS checks")
     _config5_timing(card)
+    _config34_timing(card, y_obs)
     return kern_ms
 
 
@@ -1488,14 +2059,22 @@ def main():
     parser.add_argument("--against", metavar="DIR",
                         help="time DIR's merge_count.cu and gather_parents.cu"
                              " against this tree's (phase 6)")
+    parser.add_argument("--config34-only", action="store_true",
+                        help="build, then only time configs 3 and 4 beside "
+                             "object motion in this fresh process; prints "
+                             "no result line")
     args = parser.parse_args()
     phase_environment()
     card = _card_line()
     phase_build()
+    if args.config34_only:
+        _config34_wall(card, "in a fresh process", _data())
+        return
     max_err = phase_kernel_vs_plain()
     y_obs = _data()
-    g1_launches = phase_main_path(y_obs)
-    seen = phase_paths(y_obs)
+    g1_launches, main_state = phase_main_path(y_obs)
+    seen = phase_paths(y_obs, main_state)
+    del main_state
     kern_ms = phase_timing(y_obs, card)
     if args.against:
         phase_against(args.against, card)

@@ -1,16 +1,18 @@
 from .choicemap import (ChoiceMap, Entry, Selection, EMPTY, ALL, select,
-                        normalize_address)
+                        choicemap, normalize_address)
 from .distributions import (Distribution, Normal, Bernoulli, UniformDiscrete,
-                            normal, bernoulli, uniform_discrete)
+                            Factor, normal, bernoulli, uniform_discrete,
+                            factor)
 from .gfi import (Trace, GenFn, DynamicGenFn, gen, trace, NoChange,
                   UnknownChange, Extend, batched_interpretation,
-                  current_batch, simulate, generate, update, regenerate)
+                  current_batch, simulate, generate, assess, update,
+                  regenerate)
 from .combinators import Unfold
 
-__all__ = ["ChoiceMap", "Entry", "Selection", "EMPTY", "ALL", "select",
-           "normalize_address", "Distribution",
-           "Normal", "Bernoulli", "UniformDiscrete", "normal", "bernoulli",
-           "uniform_discrete", "Trace", "GenFn",
+__all__ = ["ChoiceMap", "Entry", "Selection", "EMPTY", "ALL",
+           "select", "choicemap", "normalize_address", "Distribution",
+           "Normal", "Bernoulli", "UniformDiscrete", "Factor", "normal",
+           "bernoulli", "uniform_discrete", "factor", "Trace", "GenFn",
            "DynamicGenFn", "gen", "trace", "NoChange", "UnknownChange",
            "Extend", "batched_interpretation", "current_batch", "simulate",
-           "generate", "update", "regenerate", "Unfold"]
+           "generate", "assess", "update", "regenerate", "Unfold"]

@@ -12,8 +12,11 @@ from __future__ import annotations
 
 from typing import Dict, Tuple, Union
 
+import numpy as np
+import torch
+
 __all__ = ["Entry", "ChoiceMap", "EMPTY", "Selection", "select",
-           "ALL", "normalize_address"]
+           "ALL", "choicemap", "normalize_address"]
 
 AddressComponent = Union[str, int]
 Address = Tuple[AddressComponent, ...]
@@ -36,6 +39,17 @@ class Entry:
 
     def __repr__(self):
         return f"Entry({self.value!r}, mask={self.mask!r})"
+
+    def mask_array(self):
+        """The mask broadcast to the value's shape as a bool tensor."""
+        v = torch.as_tensor(self.value)
+        if self.mask is True:
+            return torch.ones(v.shape, dtype=torch.bool, device=v.device)
+        m = torch.as_tensor(self.mask).to(torch.bool)
+        extra = v.dim() - m.dim()
+        if extra > 0:
+            m = m.reshape(tuple(m.shape) + (1,) * extra)
+        return m.expand(v.shape)
 
     # pytree protocol (core/tree.py): a static-True mask is not a leaf
     def tree_flatten(self):
@@ -62,6 +76,10 @@ class ChoiceMap:
         """Sub-map of entries under the first address component ``name``."""
         return ChoiceMap({k[1:]: v for k, v in self.entries.items()
                           if k and k[0] == name})
+
+    def is_empty(self) -> bool:
+        """Structurally empty (no entries at all)."""
+        return not self.entries
 
     def int_keyed(self):
         """Entries whose first component is an int: {int: sub-ChoiceMap}."""
@@ -98,12 +116,86 @@ class ChoiceMap:
             raise KeyError(addr)
         return e.value
 
+    def merge(self, other: "ChoiceMap") -> "ChoiceMap":
+        """Merge; where both maps hold an entry at one address, ``other``
+        wins wherever its mask is set (mask algebra, no host read)."""
+        entries = dict(self.entries)
+        for k, e2 in other.entries.items():
+            e1 = entries.get(k)
+            if e1 is None or e2.mask is True:
+                entries[k] = e2
+                continue
+            m2 = e2.mask_array()
+            v1 = value_on(e1.value, m2.device)
+            v2 = value_on(e2.value, m2.device)
+            dt = torch.result_type(v1, v2)
+            value = torch.where(m2, v2.to(dt).expand(m2.shape),
+                                v1.to(dt).expand(m2.shape))
+            mask = True if e1.mask is True else torch.logical_or(
+                e1.mask_array(), m2)
+            entries[k] = Entry(value, mask)
+        return ChoiceMap(entries)
+
+    def total_mask_any(self):
+        """Does any entry have a set mask bit? A Python bool when every mask
+        is static, else a device bool (read only by a caller that checks)."""
+        flags = []
+        for e in self.entries.values():
+            if e.mask is True:
+                return True
+            if e.mask is not False:
+                flags.append(torch.any(torch.as_tensor(e.mask)))
+        if not flags:
+            return False
+        return torch.any(torch.stack(flags))
+
     def __repr__(self):
         items = ", ".join(f"{k}: {v!r}" for k, v in self.entries.items())
         return f"ChoiceMap({{{items}}})"
 
 
 EMPTY = ChoiceMap()
+
+
+def _as_value(v):
+    """A choice value as the JAX package stores it with 64-bit mode off:
+    Python and numpy floats become float32, ints int32, bools bool. Host
+    values stay numpy arrays, with no device of their own (the interpreter
+    that reads them places them with :func:`value_on`); tensors pass
+    through."""
+    if isinstance(v, torch.Tensor):
+        return v
+    a = np.asarray(v)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
+    return np.array(a)
+
+
+def value_on(v, device) -> torch.Tensor:
+    """A choice value as a tensor on ``device``. A one-element host value
+    enters by a fill kernel: copying it from pageable host memory would
+    wait for the device queue (a host sync per value)."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(_as_value(v))
+    if v.device.type == "cpu" and v.numel() == 1:
+        if torch.device(device).type == "cpu":
+            return v
+        return torch.full(v.shape, v.item(), dtype=v.dtype, device=device)
+    return v.to(device)
+
+
+def choicemap(*pairs) -> ChoiceMap:
+    """A :class:`ChoiceMap` from ``(addr, value)`` pairs (Gen's
+    ``choicemap``); every entry is fully present. Python and numpy values
+    are kept on the host and placed on the run's device by the verb that
+    reads them."""
+    if len(pairs) == 1 and isinstance(pairs[0], list):
+        pairs = tuple(pairs[0])
+    return ChoiceMap({normalize_address(a): (v if isinstance(v, Entry)
+                                             else Entry(_as_value(v)))
+                      for a, v in pairs})
 
 
 class Selection:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .choicemap import ChoiceMap, Entry, Selection, EMPTY
-from .gfi import GenFn, Trace, Extend, NoChange, current_batch
+from .gfi import GenFn, Trace, Extend, NoChange, current_batch, _where_lead
 from .packed import (StepStorage, make_storage, unpack_tree, read_step,
                      write_steps, zeros_column, pack_column)
 from .tree import tree_leaves, tree_map
@@ -65,17 +65,6 @@ def _col_tree(steps_col, state):
     """Per-step logical column: the slimmed step trace + the retval carry
     (they live side by side in the packed storage)."""
     return {"retval": state, "steps": steps_col}
-
-
-def _where_lead(cond, a, b):
-    """``where`` aligning a per-particle ``[b]`` ``cond`` against the
-    LEADING axis of the operands; operands with fewer axes than ``cond``
-    are shared across particles and pass ``a`` through."""
-    nd = max(a.dim(), b.dim())
-    if cond.dim() > nd:
-        return a
-    c = cond.reshape(tuple(cond.shape) + (1,) * (nd - cond.dim()))
-    return torch.where(c, a.to(b.dtype), b)
 
 
 class Unfold(GenFn):

@@ -14,7 +14,7 @@ from typing import Any
 import torch
 
 __all__ = ["Distribution", "Normal", "normal", "Bernoulli", "bernoulli",
-           "UniformDiscrete", "uniform_discrete"]
+           "UniformDiscrete", "uniform_discrete", "Factor", "factor"]
 
 
 def _f(x, device):
@@ -160,6 +160,29 @@ class UniformDiscrete(Distribution):
                                       device=dev))
 
 
+class Factor(Distribution):
+    """A soft factor: contributes ``logw`` to the score whatever its
+    (dummy, always-0) value. An unconstrained factor site cancels out of
+    ``generate`` and fresh-``update`` weights, so a ``factor(beta *
+    loglik)`` site turns an args-update into the tempered-SMC incremental
+    weight Δbeta·loglik."""
+
+    __slots__ = ("logw",)
+
+    def __init__(self, logw: Any):
+        self.logw = logw
+
+    def batch_shape(self):
+        return tuple(torch.as_tensor(self.logw).shape)
+
+    def _draw(self, gen, shape):
+        return torch.zeros(shape, dtype=torch.float32, device=gen.device)
+
+    def log_prob(self, value):
+        return _f(self.logw, _device_of(value, self.logw))
+
+
 normal = Normal
 bernoulli = Bernoulli
 uniform_discrete = UniformDiscrete
+factor = Factor

@@ -25,13 +25,16 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from .choicemap import ChoiceMap, Entry, Selection, EMPTY, normalize_address
+from .choicemap import (ChoiceMap, Entry, Selection, EMPTY, normalize_address,
+                        value_on)
 from .distributions import Distribution
+from .tree import tree_map
 
 __all__ = [
     "Trace", "GenFn", "DynamicGenFn", "gen", "trace",
     "NoChange", "UnknownChange", "Extend", "batched_interpretation",
-    "current_batch", "simulate", "generate", "update", "regenerate",
+    "current_batch", "simulate", "generate", "assess", "update",
+    "regenerate",
 ]
 
 
@@ -98,6 +101,13 @@ class Trace:
     def get_retval(self):
         return self.gen_fn.trace_retval(self)
 
+    def get_score(self):
+        return self.score
+
+    def __getitem__(self, addr):
+        """A choice value by (possibly hierarchical) address."""
+        return self.get_choices()[addr]
+
 
 # ---------------------------------------------------------------------------
 # GenFn base
@@ -116,6 +126,14 @@ class GenFn:
     def generate(self, gen, args, constraints: ChoiceMap = EMPTY):
         raise NotImplementedError
 
+    def propose(self, gen, args):
+        """``(choices, score, retval)`` of a fresh simulation."""
+        tr = self.simulate(gen, args)
+        return tr.get_choices(), tr.score, tr.get_retval()
+
+    def assess(self, args, choices: ChoiceMap):
+        raise NotImplementedError
+
     def update(self, gen, tr: Trace, new_args, argdiffs,
                constraints: ChoiceMap):
         new_tr, logq, discard = self._update(gen, tr, new_args, constraints,
@@ -129,6 +147,29 @@ class GenFn:
             gen, tr, new_args, selection, window=window)
         weight = (new_tr.score - sel_new) - (tr.score - sel_old)
         return new_tr, weight
+
+    def regenerate_delta(self, gen, tr: Trace, new_args, argdiffs,
+                         selection: Selection, window: int | None = None):
+        """Like :meth:`regenerate`, but returns ``(delta, weight)``, the
+        delta applied later by :meth:`apply_regenerate_delta` under an
+        accept mask. Default delta: the full new trace."""
+        return self.regenerate(gen, tr, new_args, argdiffs, selection,
+                               window=window)
+
+    def apply_regenerate_delta(self, tr: Trace, delta, accept):
+        """The accepted-or-original trace from a regenerate delta. Default:
+        :meth:`select_trace` between the two full traces."""
+        return self.select_trace(accept, delta, tr)
+
+    def select_trace(self, accept, new_tr: Trace, old_tr: Trace) -> Trace:
+        """``where(accept, new, old)`` over two traces of this gen fn. The
+        stored args pass through from ``new_tr`` unselected: accept/reject
+        kernels never change args, and selecting them would give a
+        particle axis to values the layout keeps shared."""
+        return Trace(self, new_tr.args,
+                     select_batched(accept, new_tr.retval, old_tr.retval),
+                     select_batched(accept, new_tr.score, old_tr.score),
+                     select_batched(accept, new_tr.inner, old_tr.inner))
 
     # -- internal protocol (used by combinators) --------------------------
     def _update(self, gen, tr, new_args, constraints, argdiffs=None):
@@ -176,6 +217,36 @@ class GenFn:
     def trace_choice_axes(self, tr: Trace, axis: int = 0):
         """``{address: particle-axis}`` for every entry of the choices."""
         return {k: axis for k in self.trace_choices(tr).entries}
+
+
+def _where_lead(cond, a, b):
+    """``where`` aligning a per-particle ``[b]`` ``cond`` against the
+    LEADING axes of the operands (a 0-d cond, the per-particle path, passes
+    through). Operands with fewer axes than ``cond`` are shared across
+    particles: a select over a shared leaf is reached only where both
+    sides hold the same kept value, so it passes ``a`` through."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    nd = max(a.dim(), b.dim())
+    if cond.dim() > nd:
+        return a
+    c = cond.reshape(tuple(cond.shape) + (1,) * (nd - cond.dim()))
+    return torch.where(c, a.to(b.dtype), b)
+
+
+def select_batched(accept, new, old):
+    """``where(accept, new, old)`` over a container, dispatching nested
+    traces to :meth:`GenFn.select_trace` and keeping leaves that are the
+    same object (or equal Python values) on both sides unselected, so they
+    keep their layout. ``accept`` is a device bool: ``[b]`` under a
+    batched interpretation, 0-d per particle."""
+    def one(a, b):
+        if isinstance(a, Trace):
+            return a.gen_fn.select_trace(accept, a, b)
+        if a is b or not (isinstance(a, torch.Tensor)
+                          or isinstance(b, torch.Tensor)) and a == b:
+            return a
+        return _where_lead(accept, a, b)
+    return tree_map(one, new, old, is_leaf=lambda x: isinstance(x, Trace))
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +322,7 @@ def _masked_sum(lp, m, batch=None):
 
 
 def _broadcast_val(value, like):
-    v = torch.as_tensor(value, device=like.device)
+    v = value_on(value, like.device)
     if v.dtype != like.dtype:
         v = v.to(like.dtype)
     return v.expand(like.shape)
@@ -343,7 +414,7 @@ class _GenerateHandler(_Handler):
         if e.mask is True:
             # fully-constrained site: store the SHARED value (no particle
             # axis, no sampling)
-            v = torch.as_tensor(e.value, device=self.device)
+            v = value_on(e.value, self.device)
             lp = dist.log_prob(v)
             self.weight = self.weight + _bsum(lp, self.batch)
             self.record(addr, v, lp)
@@ -354,6 +425,22 @@ class _GenerateHandler(_Handler):
         lp = dist.log_prob(v)
         self.weight = self.weight + _masked_sum(lp, m, self.batch)
         self.record(addr, v, lp)
+        return v
+
+
+class _AssessHandler(_Handler):
+    """Score given choices: every site must be in ``choices``."""
+
+    def __init__(self, choices: ChoiceMap, device):
+        super().__init__(None, device)
+        self.choices = choices
+
+    def dist_site(self, addr, dist):
+        e = self.choices.resolve(addr)
+        if e is None:
+            raise ValueError(f"assess: missing choice at address {addr!r}")
+        v = value_on(e.value, self.device)
+        self.record(addr, v, dist.log_prob(v))
         return v
 
 
@@ -371,7 +458,7 @@ class _UpdateHandler(_Handler):
 
         # static fast paths — no sampling, SHARED storage preserved
         if e is not None and e.mask is True:
-            v = torch.as_tensor(e.value, device=self.device)
+            v = value_on(e.value, self.device)
             if old is not None and old.mask is not False:
                 self.discard[addr] = Entry(old.value, old.mask)
             self.record(addr, v, dist.log_prob(v))
@@ -490,6 +577,36 @@ def _trace_device(tr: Trace):
     return tr.score.device
 
 
+def _assess_device(args, choices: ChoiceMap):
+    """The device ``assess`` scores on: that of the first tensor (or
+    trace) among ``args``, else of the first tensor value in ``choices``.
+    Host values in ``choices`` (Python and numpy) name no device, so with
+    nothing else to go by this raises rather than choose the CPU."""
+    def first(xs):
+        for x in xs:
+            if isinstance(x, Trace):
+                return _trace_device(x)
+            if isinstance(x, torch.Tensor):
+                return x.device
+            if isinstance(x, (tuple, list)):
+                d = first(x)
+                if d is not None:
+                    return d
+            elif isinstance(x, dict):
+                d = first(x.values())
+                if d is not None:
+                    return d
+        return None
+    device = first(args)
+    if device is None:
+        device = first(e.value for e in choices.entries.values())
+    if device is None:
+        raise ValueError("assess: neither the args nor the choices hold a "
+                         "tensor to take the device from; pass the choices "
+                         "or an argument as a tensor on the run's device")
+    return device
+
+
 # ---------------------------------------------------------------------------
 # DynamicGenFn — the @gen DSL
 # ---------------------------------------------------------------------------
@@ -525,6 +642,13 @@ class DynamicGenFn(GenFn):
         h = _GenerateHandler(gen, constraints, gen.device)
         retval = self._run(h, args)
         return self._mk_trace(args, retval, h), h.weight
+
+    def assess(self, args, choices: ChoiceMap):
+        """``(retval, score)`` of the body run on ``choices``, on the
+        device of the args (see :func:`_assess_device`)."""
+        h = _AssessHandler(choices, _assess_device(args, choices))
+        retval = self._run(h, args)
+        return retval, h.score
 
     def _update(self, gen, tr: Trace, new_args, constraints: ChoiceMap,
                 argdiffs=None):
@@ -578,6 +702,10 @@ def simulate(gf: GenFn, gen, args):
 
 def generate(gf: GenFn, gen, args, constraints: ChoiceMap = EMPTY):
     return gf.generate(gen, args, constraints)
+
+
+def assess(gf: GenFn, args, choices: ChoiceMap):
+    return gf.assess(args, choices)
 
 
 def update(gen, tr: Trace, new_args, argdiffs, constraints: ChoiceMap):

@@ -25,6 +25,26 @@ The data-association variant adds the ``[K]`` int32 ``assoc`` rows to
 ``mat`` (``T*5K`` rows). ``MOTParams`` holds no learned parameters; the
 same values are passed to both packages.
 
+For the stochastic-volatility filter (config 3; ``y`` observed densely,
+stored shared)::
+
+    args t i32, h0 f32,                  # the trace's shared args
+    score [N] f32,
+    carry h [N] f32,
+    mat [2T, N] i32, y [T] f32,          # 2 rows per step: retval h, site h
+    t,                                   # active length
+    log_weights [N] f32, log_ml_est f32, parents [N] i32
+
+For the tempered model (config 4; a plain ``@gen`` function, its sites
+in sorted address order)::
+
+    args beta f32,                       # shared
+    retval x [N] f32, score [N] f32,
+    site lik [N] f32 (the factor's zeros), site x [N] f32,
+    log_weights [N] f32, log_ml_est f32, parents [N] i32
+
+``SVParams`` and the tempered constants hold no learned parameters either.
+
 float32 leaves cross bit for bit and bool leaves as bool. The port's own
 flattening (core/tree.py) has the same order, so the structure comes from
 a template state built by the port itself. This module never sees JAX.

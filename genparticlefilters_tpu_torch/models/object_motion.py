@@ -11,30 +11,20 @@ synchronisation per step.
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import math
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import (gen, trace, bernoulli, normal, Unfold, ChoiceMap, Entry,
                     Selection, Extend, NoChange, batched_interpretation)
 from ..smc import (pf_initialize, pf_update, pf_resample, pf_rejuvenate,
                    effective_sample_size, mh)
+from ..utils.spans import span as _span
 
 __all__ = ["make_object_motion", "init_state", "synthesize_data",
            "obs_dense", "object_motion_filter", "exact_posterior"]
-
-
-def _span(name):
-    """A named ``torch.profiler`` span while a profiler runs, else nothing:
-    an unprofiled ``record_function`` costs ~15 µs of host time per span
-    on a slow host, the guard under 1 µs."""
-    if torch._C._autograd._profiler_enabled():
-        return record_function(name)
-    return contextlib.nullcontext()
 
 
 def make_object_motion(t_max: int) -> Unfold:

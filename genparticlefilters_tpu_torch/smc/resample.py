@@ -6,8 +6,10 @@ multinomial and residual (their sorted uniforms are cumulative exponential
 spacings, no sort); ``v``, the ``[n_out]`` uniforms of stratified; ``u0``,
 the systematic uniform. The arithmetic after the draws follows the JAX
 package operation for operation, every guard kept: the ``cummax`` on the
-float32 cumsums that feed brackets, ``u >= 1e-37``, ``rc >= 1e-30`` and the
-1.5/1.75 padding of residual's unused uniforms.
+cumsums that feed brackets, ``u >= 1e-37``, ``rc >= 1e-30`` and the
+1.5/1.75 padding of residual's unused uniforms. One step departs from it:
+the cumulative weights are summed in float64 (:func:`_cumw`), and the
+brackets handed to the kernels are rounded to float32 after the sum.
 
 A full state is resampled by one fused gather of every packable trace
 leaf:
@@ -82,6 +84,26 @@ def _cummax(x):
     return torch.cummax(x, -1).values
 
 
+def _cumw(w):
+    """Cumulative weights along the last axis, summed in float64. The
+    card's float32 scan reassociates: where its blocks join, a partial sum
+    is off by an ulp either way, so a zero-weight particle can own a
+    bracket of one ulp, n·ulp ≈ 0.006 of an output slot at n = 100K, and
+    resampling picks particles it should never pick (a move-reweight step
+    then gives such a particle an enormous relative weight). A float64
+    scan's errors are ~1e-16: the picks go."""
+    return torch.cumsum(w, -1, dtype=torch.float64)
+
+
+def _brackets(w, lift: bool = True):
+    """Normalized float32 brackets ``c`` from weights (any leading axes):
+    the float64 cumsum, normalized, rounded to float32 and, with ``lift``,
+    kept monotone by a ``cummax``. The merge count (G4) lifts dips inside
+    its kernel, so its routes pass ``lift=False`` and skip that scan."""
+    c = _normalized(_cumw(w)).to(torch.float32)
+    return _cummax(c) if lift else c
+
+
 def _normalized(c):
     """``c / max(c[-1], 1e-37)`` along the last axis: cumulative weights
     scaled to end at 1."""
@@ -122,7 +144,7 @@ def stratified_F(gen, weights, n_out: int | None = None, v=None):
     F_i = ⌊c_i⌋ + [v_⌊c_i⌋ <= c_i − ⌊c_i⌋] with c_i = n·cumsum(w)_i."""
     n_out = weights.shape[0] if n_out is None else int(n_out)
     v = _uniforms(gen, n_out, weights.device, v)
-    return _stratified_hits(n_out * torch.cumsum(weights, 0), v, n_out)
+    return _stratified_hits(n_out * _cumw(weights), v, n_out)
 
 
 def _stratified_hits(c, v, n_out: int):
@@ -130,7 +152,7 @@ def _stratified_hits(c, v, n_out: int):
     per-stratum uniforms ``v``: one gather instead of a search."""
     m = torch.floor(c).to(torch.int32)
     mc = torch.clamp(m, 0, n_out - 1).long()
-    frac_hit = (v[mc] <= c - m.to(torch.float32)) & (m < n_out)
+    frac_hit = (v[mc] <= c - m.to(c.dtype)) & (m < n_out)
     F = torch.clamp(m, 0, n_out) + frac_hit.to(torch.int32)
     return _pinned_F(F, n_out)
 
@@ -144,7 +166,7 @@ def stratified_cu(gen, weights, n_out: int | None = None, v=None):
     u = (torch.arange(n_out, dtype=torch.float32, device=weights.device)
          + v) / n_out
     u = torch.clamp_min(u, 1e-37)  # u = 0 would match no bracket
-    return _normalized(_cummax(torch.cumsum(weights, 0))), u
+    return _brackets(weights), u
 
 
 def systematic_F(gen, weights, n_out: int | None = None, u0=None):
@@ -154,7 +176,7 @@ def systematic_F(gen, weights, n_out: int | None = None, u0=None):
     n_out = weights.shape[0] if n_out is None else int(n_out)
     u0 = _draws(u0, (), weights.device, lambda: torch.rand(
         (), generator=gen, dtype=torch.float32, device=weights.device))
-    c = n_out * torch.cumsum(weights, 0) - u0
+    c = n_out * _cumw(weights) - u0.to(torch.float64)
     return _pinned_F(torch.floor(c).to(torch.int32) + 1, n_out)
 
 
@@ -167,7 +189,7 @@ def multinomial_cu(gen, weights, n_out: int | None = None, e=None):
     ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
     # an exact-zero first uniform would match no bracket
     u = torch.clamp_min(ce[:-1] / ce[-1], 1e-37)
-    return _normalized(_cummax(torch.cumsum(weights, 0))), u
+    return _brackets(weights), u
 
 
 def multinomial_F(gen, weights, n_out: int | None = None, e=None):
@@ -178,7 +200,7 @@ def multinomial_F(gen, weights, n_out: int | None = None, e=None):
     n_out = weights.shape[0] if n_out is None else int(n_out)
     ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
     u = ce[:-1] / ce[-1]
-    F = merge_count(_normalized(torch.cumsum(weights, 0)), u)
+    F = merge_count(_brackets(weights, lift=False), u)
     return _pinned_F(F, n_out)
 
 
@@ -211,10 +233,9 @@ def residual_F(gen, weights, n_out: int | None = None, e=None):
     same law."""
     n_out = weights.shape[0] if n_out is None else int(n_out)
     det, n_res, resid = _residual_split(weights, n_out)
-    rcum = torch.cumsum(resid, 0)
     ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
     u = _residual_u(ce, n_res, n_out)
-    F_res = merge_count(_normalized(rcum), u)
+    F_res = merge_count(_brackets(resid, lift=False), u)
     return _pinned_F(torch.cumsum(det, 0, dtype=torch.int32) + F_res, n_out)
 
 
@@ -226,7 +247,7 @@ def residual_F_fused(gen, weights, n_out: int | None = None, e=None):
     parents G2 returns ARE G."""
     n_out = weights.shape[0] if n_out is None else int(n_out)
     det, n_res, resid = _residual_split(weights, n_out)
-    rc = _normalized(_cummax(torch.cumsum(resid, 0)))
+    rc = _brackets(resid)
     # a query of exactly 0.0 (zero-residual prefix) would match no bracket
     rc = torch.clamp_min(rc, 1e-30)
     ce = _sorted_uniforms_cum(gen, n_out, weights.device, e)
@@ -475,13 +496,10 @@ def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
                 generator=gen))
         return _cummax(torch.cumsum(ex, 1))
 
-    def brackets(w):
-        return _normalized(_cummax(torch.cumsum(w, 1)))
-
     if method == "systematic":
         u = _draws(u0, (K,), dev, lambda: torch.rand(
             (K,), generator=gen, dtype=torch.float32, device=dev))
-        c = b * torch.cumsum(weights_blocks, 1) - u[:, None]
+        c = b * _cumw(weights_blocks) - u[:, None].to(torch.float64)
         F = _pinned_F(torch.floor(c).to(torch.int32) + 1, b)
         return "F", (F + offs).reshape(K * b)
     if method == "stratified":
@@ -491,14 +509,14 @@ def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
         vv = _draws(v, (K, b), dev, lambda: torch.rand(
             (K, b), generator=gen, dtype=torch.float32, device=dev))
         u = (torch.arange(b, dtype=torch.float32, device=dev) + vv) / b
-        c = brackets(weights_blocks)
+        c = _brackets(weights_blocks)
         u = torch.clamp_min(u, max(K, 2) * 2.0 ** -21)
         return "cu", (((kf + c) * invK).reshape(K * b),
                       ((kf + u) * invK).reshape(K * b))
     if method == "multinomial":
         ce = spacings()
         u = ce[:, :-1] / ce[:, -1:]
-        c = brackets(weights_blocks)
+        c = _brackets(weights_blocks)
         # clamp >= K*2^-21 (not 2^-23): with ~1 ulp of margin, (k+u)*invK
         # and the block boundary k*invK can still round to EQUAL f32 values
         # for k near K at non-power-of-two K, so the strict c_prev < u
@@ -513,7 +531,7 @@ def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
         det = torch.floor(scaled).to(torch.int32)
         n_res = b - torch.sum(det, 1, dtype=torch.int32)
         resid = scaled - det.to(weights_blocks.dtype)
-        rc = brackets(resid)
+        rc = _brackets(resid)
         # the same K-scaled margin as multinomial, before the halving below
         rc = torch.clamp_min(rc, max(K, 2) * 2.0 ** -22)
         ce = spacings()

@@ -1,43 +1,123 @@
-"""Particle filter update: propagate every particle one step and
-reweight, with the model's default proposal under ONE batched
-interpretation. Translators, custom proposals and strata wait for later
-slices."""
+"""Particle filter update: propagate every particle one step and reweight,
+under ONE batched interpretation of the whole particle set. One
+dispatcher covers the JAX package's forms:
+
+- ``pf_update(gen, state, new_args, argdiffs, observations)``: the
+  model's default proposal;
+- ``..., proposal=, proposal_args=[, transform=]``: an
+  :class:`ExtendingTraceTranslator`;
+- ``..., proposal=, bwd_proposal=, bwd_args=[, transform=]``: an
+  :class:`UpdatingTraceTranslator` (Del Moral SMC, or SMCP³ with a
+  transform);
+- ``pf_update(gen, state, translator=...)``: any translator;
+- the default proposal with ``strata=``: a stratified update (default
+  layout interleaved), each weight + log(n_strata).
+
+Works on full states and on :class:`ParticleFilterSubState` views. The
+per-particle path (models or proposals that are not ``batch_safe``) and
+strata combined with a translator wait for slice 9.
+"""
 
 from __future__ import annotations
 
-import torch
-
 from ..core.choicemap import ChoiceMap, EMPTY
-from ..core.gfi import batched_interpretation
+from ..core.gfi import GenFn, batched_interpretation
+from .initialize import _per_particle_strata
+from .state import ParticleFilterSubState
+from .translate import (ExtendingTraceTranslator, UpdatingTraceTranslator,
+                        GeneralTraceTranslator, _check_no_discard)
 
 __all__ = ["pf_update"]
 
 
-def _check_no_discard(discard: ChoiceMap, check: bool):
-    """An update that overwrote choices is not an extension: raise when
-    checking and any discard entry is present. Static-True masks are
-    decided on the host; tensor masks are read from the device."""
-    if not check:
-        return
-    for addr, e in discard.entries.items():
-        if e.mask is True or (e.mask is not False
-                              and bool(torch.any(e.mask))):
-            raise ValueError(
-                f"pf_update discarded the choice at {addr}: an update "
-                "must only extend the trace")
+def _block(state):
+    """``(traces, log_weights, n, scatter)`` of a full state or a view:
+    ``scatter(traces, log_weights)`` returns the full state with the
+    block's values written back (particles outside a view unchanged)."""
+    if isinstance(state, ParticleFilterSubState):
+        def scatter(traces, lw):
+            return state.scatter(traces=traces, log_weights=lw)
+    else:
+        def scatter(traces, lw):
+            return state.replace(traces=traces, log_weights=lw)
+    return state.traces, state.log_weights, state.n_particles, scatter
 
 
-def pf_update(gen, state, new_args, argdiffs,
-              observations: ChoiceMap = EMPTY, check: bool | None = None):
+def _translator_batch_safe(model_gf, translator) -> bool:
+    """A translator runs under ONE batched interpretation when it is one
+    of the known classes and the model and every generative function it
+    invokes are ``batch_safe``."""
+    if not getattr(model_gf, "batch_safe", False):
+        return False
+    if isinstance(translator, ExtendingTraceTranslator):
+        qs = (translator.q_forward,)
+    elif isinstance(translator, UpdatingTraceTranslator):
+        qs = (translator.q_forward, translator.q_backward)
+    elif isinstance(translator, GeneralTraceTranslator):
+        qs = (translator.q_forward, translator.q_backward,
+              translator.new_model)
+    else:
+        return False
+    return all(q is None or getattr(q, "batch_safe", False) for q in qs)
+
+
+def pf_update(gen, state, new_args=None, argdiffs=None,
+              observations: ChoiceMap = EMPTY,
+              proposal: GenFn | None = None, proposal_args=None,
+              bwd_proposal: GenFn | None = None, bwd_args=None,
+              transform=None, translator=None, strata=None,
+              layout: str = "interleaved", check: bool | None = None,
+              prev_observations: ChoiceMap = EMPTY, translator_kwargs=None):
     """Propagate every particle one step and reweight. Returns a new
-    state."""
-    traces = state.traces
+    state (the full state when given a view)."""
+    traces, log_weights, n, scatter = _block(state)
+
+    if translator is None and proposal is not None and bwd_proposal is None:
+        translator = ExtendingTraceTranslator(
+            p_new_args=new_args, p_argdiffs=argdiffs,
+            new_observations=observations, q_forward=proposal,
+            q_forward_args=tuple(proposal_args or ()), transform=transform)
+    elif translator is None and bwd_proposal is not None:
+        translator = UpdatingTraceTranslator(
+            p_new_args=new_args, p_argdiffs=argdiffs,
+            new_observations=observations, q_forward=proposal,
+            q_forward_args=tuple(proposal_args or ()),
+            q_backward=bwd_proposal, q_backward_args=tuple(bwd_args or ()),
+            transform=transform)
+
+    if translator is not None:
+        if strata is not None:
+            raise NotImplementedError(
+                "strata with a translator run per particle, which waits for "
+                "slice 9")
+        if not _translator_batch_safe(traces.gen_fn, translator):
+            raise NotImplementedError(
+                "only batch_safe models and translators are ported (batched "
+                "interpretation); the per-particle path waits for slice 9")
+        tkw = dict(translator_kwargs or {})
+        if check is not None:
+            tkw["check"] = check
+        if (isinstance(translator, UpdatingTraceTranslator)
+                and prev_observations is not EMPTY):
+            tkw["prev_observations"] = prev_observations
+        with batched_interpretation(n):
+            new_traces, ws = translator(gen, traces, **tkw)
+        return scatter(new_traces, log_weights + ws)
+
+    if new_args is None:
+        raise ValueError("pf_update requires new_args (or a translator)")
     if not getattr(traces.gen_fn, "batch_safe", False):
         raise NotImplementedError(
-            "only batch_safe models are ported (batched interpretation)")
-    with batched_interpretation(state.n_particles):
+            "only batch_safe models are ported (batched interpretation); "
+            "the per-particle path waits for slice 9")
+    with batched_interpretation(n):
+        constraints, log_nk = observations, None
+        if strata is not None:
+            per_particle, log_nk = _per_particle_strata(gen, strata, n,
+                                                        layout)
+            constraints = per_particle.merge(observations)
         new_traces, ws, _, discard = traces.gen_fn.update(
-            gen, traces, new_args, argdiffs, observations)
+            gen, traces, new_args, argdiffs, constraints)
     _check_no_discard(discard, True if check is None else check)
-    return state.replace(traces=new_traces,
-                         log_weights=state.log_weights + ws)
+    lw = log_weights + ws
+    return scatter(new_traces, lw if log_nk is None else lw + log_nk)

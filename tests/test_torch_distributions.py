@@ -1,7 +1,8 @@
 """Primitive distributions (genparticlefilters_tpu_torch/core/
 distributions.py): ``UniformDiscrete`` against the JAX package's, the
-fill-kernel scalar path of ``_f`` against ``torch.as_tensor``, and the
-batched draw of parameters shared across particles."""
+fill-kernel scalar path of ``_f`` against ``torch.as_tensor``, the
+batched draw of parameters shared across particles, and ``Factor``
+against the JAX package's."""
 
 import math
 
@@ -67,3 +68,24 @@ def test_shared_parameters_get_a_particle_axis():
     # parameters already carrying the particle axis keep their shape
     y = td.normal(torch.zeros(7, 4, 2), 1.0).sample_batched(gen, 7)
     assert tuple(y.shape) == (7, 4, 2)
+
+
+@pytest.mark.parametrize("logw", [-1.25, 3, np.array([0.5, -2.0, 7.125],
+                                                        np.float32)])
+def test_factor_matches_jax(logw):
+    jf = jd.factor(jnp.asarray(logw) if isinstance(logw, np.ndarray)
+                   else logw)
+    tf = td.factor(torch.from_numpy(logw) if isinstance(logw, np.ndarray)
+                   else logw)
+    shape = np.shape(logw)
+    ref_lp = np.asarray(jf.log_prob(jnp.zeros(shape)))
+    got_lp = tf.log_prob(torch.zeros(shape))
+    assert got_lp.dtype == torch.float32
+    np.testing.assert_array_equal(got_lp.numpy(), ref_lp)
+    gen = torch.Generator().manual_seed(0)
+    assert torch.equal(tf.sample(gen), torch.zeros(shape))
+    # batched: a shared logw gets the particle axis; a [b] one keeps it
+    b = 3 if shape == () else shape[0]
+    x = tf.sample_batched(gen, b)
+    assert x.dtype == torch.float32 and tuple(x.shape) == (b,)
+    assert not x.any()

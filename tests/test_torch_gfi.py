@@ -151,3 +151,64 @@ def test_simulate_score_is_sum_of_site_logprobs(batch):
 def test_sites_outside_an_interpreter_raise():
     with pytest.raises(RuntimeError):
         g.trace("x", g.normal(0.0, 1.0))
+
+
+@pytest.mark.parametrize("batch", [N, None])
+def test_propose_and_assess_score_the_same_choices(batch):
+    """propose returns the choices and score of a fresh simulation; assess
+    of those choices gives the same score and retval."""
+    gen = torch.Generator().manual_seed(7)
+    choices, score, retval = _run(batch, lambda: _model.propose(
+        gen, (torch.tensor(0.3),)))
+    r2, s2 = _run(batch, lambda: g.assess(_model, (torch.tensor(0.3),),
+                                          choices))
+    np.testing.assert_allclose(s2.numpy(), score.numpy(), atol=1e-6)
+    assert torch.equal(r2, retval)
+    with pytest.raises(ValueError, match="missing choice"):
+        g.assess(_model, (torch.tensor(0.3),),
+                 g.ChoiceMap({("b",): choices.resolve(("b",))}))
+
+
+_HOST_CHOICES = (("b", True), ("x", 0.5), ("y", -0.25))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_assess_scores_on_the_device_of_its_args(device):
+    """A choicemap built from Python values names no device: assess scores
+    it on the device of its args (``meta`` stands in for the card here, so
+    a score left on the CPU would show), and raises when nothing names
+    one."""
+    r, s = g.assess(_model, (torch.tensor(0.3, device=device),),
+                    g.choicemap(*_HOST_CHOICES))
+    assert s.device.type == device and r.device.type == device
+    if device == "cpu":
+        want = (lp_bern(True, 0.3) + lp_normal(0.5, 0.3, 2.0)
+                + lp_normal(-0.25, 0.5, 1.0))
+        np.testing.assert_allclose(float(s), want, atol=1e-5)
+    with pytest.raises(ValueError, match="device"):
+        g.assess(_model, (0.3,), g.choicemap(*_HOST_CHOICES))
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(),
+                    reason="needs a CUDA card")
+def test_assess_of_host_choices_with_card_args_scores_on_the_card():
+    r, s = g.assess(_model, (torch.tensor(0.3, device="cuda"),),
+                    g.choicemap(*_HOST_CHOICES))
+    assert s.device.type == "cuda" and r.device.type == "cuda"
+
+
+def test_select_trace_keeps_shared_leaves_and_args():
+    """The default accept/reject select: per-particle leaves by the mask,
+    a shared observed site and the stored args passed through."""
+    gen = torch.Generator().manual_seed(8)
+    obs = g.ChoiceMap({("y",): g.Entry(torch.tensor(0.7), True)})
+    old, _ = _run(N, lambda: _model.generate(gen, (torch.tensor(0.2),), obs))
+    new, _ = _run(N, lambda: g.regenerate(gen, old, (torch.tensor(0.2),),
+                                          (g.NoChange(),), g.select("x")))
+    accept = torch.tensor([True, False, True, False, False])
+    out = _model.select_trace(accept, new, old)
+    assert out.args is new.args
+    assert out.inner["sites"][("y",)].value.dim() == 0
+    want = torch.where(accept, new["x"], old["x"])
+    assert torch.equal(out["x"], want)
+    assert torch.equal(out.score, torch.where(accept, new.score, old.score))

@@ -29,15 +29,19 @@ def test_every_module_imports():
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
     for name in ("ops.fused_gather", "ops.gather", "smc.resize",
-                 "models.multi_object", "parallel", "parallel.distributed"):
+                 "models.multi_object", "parallel", "parallel.distributed",
+                 "smc.translate", "utils.stratification",
+                 "models.stochastic_volatility", "models.tempered"):
         assert f"genparticlefilters_tpu_torch.{name}" in names
     for name in names:
         importlib.import_module(name)
 
 
 def test_new_modules_import_without_jax_or_triton():
-    """ops/gather, smc/resize, models/multi_object and parallel import in a
-    fresh interpreter where jax and triton cannot be imported."""
+    """ops/gather, smc/resize, smc/translate, utils/stratification, the
+    multi-object, stochastic-volatility and tempered models and parallel
+    import in a fresh interpreter where jax and triton cannot be
+    imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -48,6 +52,10 @@ def test_new_modules_import_without_jax_or_triton():
         "import genparticlefilters_tpu_torch.ops.gather\n"
         "import genparticlefilters_tpu_torch.smc.resize\n"
         "import genparticlefilters_tpu_torch.models.multi_object\n"
+        "import genparticlefilters_tpu_torch.models.stochastic_volatility\n"
+        "import genparticlefilters_tpu_torch.models.tempered\n"
+        "import genparticlefilters_tpu_torch.smc.translate\n"
+        "import genparticlefilters_tpu_torch.utils.stratification\n"
         "import genparticlefilters_tpu_torch.parallel\n"
         "assert not any(m.split('.')[0] in ('jax', 'triton')\n"
         "               for m in sys.modules)\n")

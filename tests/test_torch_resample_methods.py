@@ -9,8 +9,9 @@ brackets and queries ``(c, u)`` (or ``(det, rc, u)``), everything
 downstream is float32 compares and integer work, so hit counts and parents
 must be bit-equal to JAX's.
 
-From the same weights and draws end to end, the port's and JAX's float32
-cumsums associate differently, so a hit count (or a parent) may differ
+From the same weights and draws end to end, the port sums the cumulative
+weights in float64 and JAX in float32, so a hit count (or a parent) may
+differ
 where a query lies within float32 spacing of a bracket edge. A tie is
 identified in float64 as an edge (or query) with a query (or edge) within
 1e-5 relative of it; every difference must be a tie, and differences stay
@@ -435,6 +436,30 @@ def test_resampling_unbiased_counts(parent_fn):
     stderr = np.sqrt(n * w * (1 - w) / reps) + 1e-3
     assert np.all(np.abs(avg - n * w) < 6 * stderr + 0.05), (
         np.abs(avg - n * w) / stderr)
+
+
+@pytest.mark.parametrize("parent_fn", [
+    lambda g, w: tres.multinomial_parents(g, w),
+    lambda g, w: tres.residual_parents(g, w),
+    lambda g, w: tres.stratified_parents(g, w),
+    lambda g, w: tres.systematic_parents(g, w),
+    _cu_parents(tres.multinomial_cu),
+    _cu_parents(tres.stratified_cu),
+    lambda g, w: tres._F_to_parents(tres.residual_F_fused(g, w),
+                                    w.shape[0]),
+], ids=["multinomial", "residual", "stratified", "systematic",
+        "multinomial_cu", "stratified_cu", "residual_F_fused"])
+def test_zero_weight_particles_are_never_picked(parent_fn):
+    """Nine in ten weights exactly 0 at N=100K: no method may pick one.
+    (On the card a float32 scan did, where its blocks join: the cumulative
+    weights are summed in float64.)"""
+    n = 100_000
+    rng = np.random.default_rng(6)
+    w = rng.gamma(0.3, size=n) * (rng.random(n) < 0.1)
+    tw = torch.from_numpy((w / w.sum()).astype(np.float32))
+    for seed in range(3):
+        p = parent_fn(torch.Generator().manual_seed(seed), tw).long()
+        assert bool((tw[p] > 0).all())
 
 
 def test_sample_unweighted_traces():
