@@ -63,6 +63,23 @@ non-zero and no result line is printed):
    scoring on the card with no host sync; and pf_update / pf_rejuvenate (move and
    reweight) on half views of object-motion states: the other half
    bit-unchanged, the view as the verb run on the taken block;
+4o. the line model of tests/fixtures.py (a @gen calling an Unfold at
+   "line"), N=100K, T=10, data y_0..y_9 from its generate with slope = 1,
+   driven as the reference README drives it: when the ESS falls below
+   N/2, resample and MH on the slope with the full re-scan regenerate,
+   then pf_update with the next y. Route A updates by UnknownChange (the
+   full re-scan through the call site) and resamples systematically (G1);
+   route B by Extend(1, at="line") and residually (G2 count + G1). Each
+   route: one counted run (at most one host sync per step, the ESS `if`),
+   then 4 seeds against the exact enumeration over the slope: mean LML
+   within 6·stderr + 0.05 of log Z, every seed within 0.5, P(slope = s)
+   within 6·stderr + 0.02;
+4p. a MapCombinator plate, N=100K: mu ~ N(0, 1), x_i ~ N(mu, 1), y_i ~
+   N(x_i, 0.5) = 0.5 for i < 8; pf_initialize, systematic resampling (G1
+   gathers the [N, 8] plate leaves) and two MH sweeps on mu through the
+   call site, with no host sync; over 8 seeds the mean LML within 0.05 of
+   the conjugate log Z and the posterior mean of mu within
+   6·stderr + 0.02;
 5. timing: each kernel against its plain version and, where one PyTorch
    call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
@@ -79,9 +96,12 @@ non-zero and no result line is printed):
    ESS checks: 99 and 49) and G1's launches per run; the weights' cumsum
    in float32 and float64; and the cost of the store copy that each
    windowed SV rejuvenation makes;
-   Configs 3 and 4 are timed in turns beside the object-motion filter
-   twice: at the start of phase 5 and after config 5 (there also with
-   the cyclic GC off and after emptying the allocator's cache);
+   Configs 3 and 4 and the cells 4o (both routes) and 4p are timed in
+   turns beside the object-motion filter twice: at the start of phase 5
+   and after config 5 (there also with the cyclic GC off and after
+   emptying the allocator's cache), each with its kernels per run, device
+   busy time and idle share from the profiler, and 4o with the Unfold
+   step bodies one run executes per route;
 6. only with ``--against DIR``: DIR holds earlier versions of
    merge_count.cu and gather_parents.cu (same C entry points as the ones
    they precede); they are built under other library names and timed
@@ -132,7 +152,11 @@ N_SV, T_SV = 100_000, 100       # config 3 (BASELINE.json, scripts/sv_bench.py)
 N_SV_REF = 1_000_000            # its independent bootstrap reference
 N_TM, K_TM = 100_000, 50        # config 4: particles, temperatures
 N_STRATA = 100_000              # path 4n
-SPANS = ("om.", "c5.", "sv.", "tm.")   # profiler span prefixes of the runs
+N_LINE, T_LINE = 100_000, 10    # path 4o: the line model of tests/fixtures.py
+N_PLATE, D_PLATE, Y_PLATE = 100_000, 8, 0.5   # path 4p: mu ~ N(0, 1),
+#                                 x_i ~ N(mu, 1), y_i ~ N(x_i, 0.5) = 0.5
+SPANS = ("om.", "c5.", "sv.", "tm.", "lm.", "mp.")   # profiler span
+#                                 prefixes of the runs
 MAX_SYNCS = 9                   # per object-motion run: the 9 ESS checks
 HBM_BYTES_PER_MS = 3.35e9       # the H100 SXM's 3.35 TB/s
 CSRC = "genparticlefilters_tpu_torch/csrc/"
@@ -668,6 +692,7 @@ def phase_paths(y_obs, main_state):
     del st
     seen.update(_config5_paths())
     seen.update(_config34_paths(y_obs, main_state))
+    seen.update(_call_site_paths())
     return seen
 
 
@@ -1525,18 +1550,270 @@ def _config34_paths(y_obs, main_state):
     return seen
 
 
+# ---------------------------------------------------------------------------
+# Sub-generative-function calls: the line model and a plate (paths 4o, 4p)
+# ---------------------------------------------------------------------------
+
+def _line_setup():
+    """(the line model, its Unfold, y_0..y_9): the twin of the reference's
+    test model (tests/fixtures.py): slope ~ uniform_discrete(-2, 2); per
+    step x = t + 1, outlier ~ bernoulli(0.1), y ~ N(x·slope, outlier ? 10
+    : 1), the steps an Unfold called at "line". The data come from its
+    generate with slope constrained to 1 (seed 780)."""
+    import genparticlefilters_tpu_torch as g
+
+    @g.gen
+    def line_step(t, x, slope):
+        x = x + 1.0
+        outlier = g.trace("outlier", g.bernoulli(0.1))
+        g.trace("y", g.normal(x * slope, torch.where(outlier, 10.0, 1.0)))
+        return x
+    line_step.batch_safe = True
+    unfold = g.Unfold(line_step, T_LINE)
+
+    @g.gen
+    def line_model(n):
+        slope = g.trace("slope", g.uniform_discrete(-2, 2))
+        x0 = slope.new_zeros((), dtype=torch.float32)
+        g.trace("line", unfold, (n, x0, slope.to(torch.float32)))
+        return slope
+    line_model.batch_safe = True
+    with g.batched_interpretation(1):
+        tr, _ = line_model.generate(_gen(780), (T_LINE,),
+                                    g.choicemap(("slope", 1)))
+    y = [float(v) for v in tr.get_choices()[("line", "y")][:, 0].cpu()]
+    return line_model, unfold, y
+
+
+def _line_exact(y):
+    """(P(slope = s | y) for s = -2..2, log Z) by enumeration in float64:
+    p(s | y) ∝ (1/5) Π_t [0.9 N(y_t; (t+1)s, 1)
+                          + 0.1 N(y_t; (t+1)s, 10)]."""
+    def lnorm(v, m, sd):
+        return (-0.5 * ((v - m) / sd) ** 2 - math.log(sd)
+                - 0.5 * math.log(2 * math.pi))
+    lj = []
+    for s in range(-2, 3):
+        lp = math.log(1 / 5)
+        for t, v in enumerate(y):
+            a = math.log(0.9) + lnorm(v, (t + 1) * s, 1.0)
+            b = math.log(0.1) + lnorm(v, (t + 1) * s, 10.0)
+            lp += max(a, b) + math.log1p(math.exp(-abs(a - b)))
+        lj.append(lp)
+    lj = np.array(lj)
+    log_z = lj.max() + math.log(np.exp(lj - lj.max()).sum())
+    return np.exp(lj - log_z), log_z
+
+
+def _line_run(route, model):
+    """The reference README's filter on ``model``, the line model, as
+    ``run(gen, y, n)``. Route A: pf_update with UnknownChange (the full re-scan through
+    the call site) and systematic resampling (G1); route B: Extend(1,
+    at="line") (the O(1) extension) and residual resampling (G2 count +
+    G1). Both: when the ESS falls below N/2, resample, then MH on the
+    slope with the full re-scan regenerate (window=None)."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.utils.spans import span
+    method, diffs = (("systematic", (g.UnknownChange(),)) if route == "A"
+                     else ("residual", (g.Extend(1, at="line"),)))
+
+    def run(gen, y, n):
+        with span("lm.initialize"):
+            st = g.pf_initialize(gen, model, (0,), g.EMPTY, n)
+        for t in range(1, T_LINE + 1):
+            with span("lm.ess_check"):
+                low = bool(g.effective_sample_size(st) < n / 2)
+            if low:
+                with span("lm.resample"):
+                    st = g.pf_resample(gen, st, method, check=False)
+                with span("lm.rejuvenate"):
+                    st = g.pf_rejuvenate(gen, st, g.mh,
+                                         (g.select("slope"),))
+            with span("lm.update"):
+                st = g.pf_update(gen, st, (t,), diffs, g.choicemap(
+                    (("line", t - 1, "y"), y[t - 1])))
+        return st
+    return run
+
+
+def _line_path(route, need, line):
+    """(o), one route: the counted run (launches, host syncs, step bodies,
+    the storage on the card), then the gate over 4 seeds against the exact
+    enumeration: mean LML within 6·stderr + 0.05 of log Z and every seed
+    within 0.5; P(slope = s) within 6·stderr + 0.02 for every s."""
+    import genparticlefilters_tpu_torch as g
+    model, unfold, y = line
+    post, log_z = _line_exact(y)
+    run = _line_run(route, model)
+    before = unfold.steps_run
+    (st, syncs), counts = _path(
+        f"4o line model route {route} N={N_LINE} T={T_LINE}",
+        lambda: _synced(lambda: run(_gen(870), y, N_LINE)), need)
+    bodies = unfold.steps_run - before
+    if len(syncs) > T_LINE:
+        raise AssertionError(f"4o route {route}: {len(syncs)} host syncs, "
+                             f"more than the {T_LINE} ESS checks: {syncs}")
+    store = st.traces.inner["subs"][("line",)].inner["store"]
+    if (store.mat.device.type != "cuda"
+            or tuple(store.mat.shape) != (3 * T_LINE, N_LINE)):
+        raise AssertionError(f"4o: store {tuple(store.mat.shape)} on "
+                             f"{store.mat.device}")
+    lmls, probs = [], []
+    for s in range(4):
+        st = run(_gen(880 + s), y, N_LINE)
+        lmls.append(float(g.log_ml_estimate(st)))
+        pm = g.proportionmap(st, "slope")
+        probs.append([pm.get(k, 0.0) for k in range(-2, 3)])
+    lmls, probs = np.array(lmls), np.array(probs)
+    lim = 6 * lmls.std() / 2 + 0.05
+    diff, far = abs(lmls.mean() - log_z), float(np.abs(lmls - log_z).max())
+    p_err = np.abs(probs.mean(0) - post)
+    p_lim = 6 * probs.std(0) / 2 + 0.02
+    if diff >= lim or far >= 0.5 or np.any(p_err >= p_lim):
+        raise AssertionError(f"4o route {route}: LMLs {lmls} vs log Z "
+                             f"{log_z}; P(slope) {probs.mean(0)} vs {post}")
+    print(f"[4o route {route}] one run: {len(syncs)} host syncs (limit "
+          f"{T_LINE}, the ESS checks), {bodies} Unfold step bodies, mat "
+          f"{tuple(store.mat.shape)} int32 on cuda; 4 seeds: mean LML "
+          f"{lmls.mean():.4f} vs exact log Z {log_z:.4f} (|diff| {diff:.4f}, "
+          f"limit {lim:.4f}; farthest seed {far:.4f}, limit 0.5); P(slope = "
+          f"-2..2) {np.round(probs.mean(0), 4).tolist()} vs exact "
+          f"{np.round(post, 4).tolist()} (max |diff| {p_err.max():.4f})")
+    return counts
+
+
+def _plate_setup():
+    """The plate model, its observations, exact log Z and exact posterior
+    mean of mu (a dict): mu ~ N(0, 1); at "plate" a MapCombinator of 8
+    units x_i ~ N(mu, 1), y_i ~ N(x_i, 0.5), every y_i observed at 0.5
+    (stored shared: one [8] row). y_i | mu ~ N(mu, 1.25) iid, so log Z is
+    the log-density of y under N(0, 1.25 I + 1 1ᵀ)."""
+    import genparticlefilters_tpu_torch as g
+
+    @g.gen
+    def unit(i, mu):
+        x = g.trace("x", g.normal(mu, 1.0))
+        g.trace("y", g.normal(x, 0.5))
+        return x
+    unit.batch_safe = True
+    plate = g.MapCombinator(unit, D_PLATE)
+
+    @g.gen
+    def plate_model(idx):
+        mu = g.trace("mu", g.normal(0.0, 1.0))
+        g.trace("plate", plate, (idx, mu))
+        return mu
+    plate_model.batch_safe = True
+    y = np.full(D_PLATE, Y_PLATE)
+    cov = 1.25 * np.eye(D_PLATE) + 1.0
+    return {"model": plate_model,
+            "obs": g.ChoiceMap({("plate", "y"): g.Entry(
+                torch.full((D_PLATE,), Y_PLATE, device="cuda"), True)}),
+            "log_z": float(-0.5 * y @ np.linalg.solve(cov, y)
+                           - 0.5 * np.linalg.slogdet(2 * math.pi * cov)[1]),
+            "mean": y.sum() / 1.25 / (1 + D_PLATE / 1.25)}
+
+
+def _plate_run(p):
+    """``run(gen, _, n)``: pf_initialize of the plate model ``p``,
+    systematic resampling (G1 gathers the [N, 8] plate leaves), then two
+    MH sweeps on mu through the call site."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.utils.spans import span
+
+    def run(gen, _y, n):
+        with span("mp.initialize"):
+            st = g.pf_initialize(gen, p["model"], (torch.arange(
+                D_PLATE, device=gen.device),), p["obs"], n)
+        with span("mp.resample"):
+            st = g.pf_resample(gen, st, "systematic", check=False)
+        with span("mp.rejuvenate"):
+            return g.pf_rejuvenate(gen, st, g.mh, (g.select("mu"),), 2)
+    return run
+
+
+def _plate_path(p):
+    """(p): the plate model at N=100K: launches and host syncs of one run,
+    which kernel gathered the [N, 8] plate leaves; over 8 seeds the mean
+    LML within 0.05 of log Z and the posterior mean of mu within
+    6·stderr + 0.02."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.core.batching import flatten_with_axes
+    run = _plate_run(p)
+    (st, syncs), counts = _path(f"4p plate N={N_PLATE} n={D_PLATE}",
+                                lambda: _synced(lambda: run(
+                                    _gen(890), None, N_PLATE)), (G1,))
+    if syncs:
+        raise AssertionError(f"4p: host syncs {syncs}")
+    leaves, axes, _ = flatten_with_axes(st.traces)
+    wide = [tuple(l.shape) for l, ax in zip(leaves, axes)
+            if ax == 0 and tuple(l.shape) == (N_PLATE, D_PLATE)]
+    shared = tuple(st.traces.get_choices()[("plate", "y")].shape)
+    if not wide or shared != (D_PLATE,):
+        raise AssertionError(f"4p: plate leaves {wide}, y stored {shared}")
+    lmls, means = [], []
+    for s in range(8):
+        st = run(_gen(900 + s), None, N_PLATE)
+        lmls.append(float(g.log_ml_estimate(st)))
+        means.append(float(g.mean(st, "mu")))
+    diff = abs(np.mean(lmls) - p["log_z"])
+    m_err = abs(np.mean(means) - p["mean"])
+    m_lim = 6 * np.std(means) / math.sqrt(8) + 0.02
+    if diff >= 0.05 or m_err >= m_lim:
+        raise AssertionError(f"4p: LMLs {lmls} vs log Z {p['log_z']}; "
+                             f"means {means} vs {p['mean']}")
+    print(f"[4p plate] the systematic pf_resample gathered the {len(wide)} "
+          f"[N, {D_PLATE}] plate leaves (x, scores, retvals, args) packed "
+          f"particle-last through {G1}: {counts[G1]} launches in the run; "
+          f"y stored shared {shared}; no host sync; 8 seeds: mean LML "
+          f"{np.mean(lmls):.4f} vs exact log Z {p['log_z']:.4f} (|diff| "
+          f"{diff:.4f}, limit 0.05); posterior mean of mu {np.mean(means):.4f}"
+          f" vs exact {p['mean']:.4f} (|diff| {m_err:.4f}, limit "
+          f"{m_lim:.4f})")
+    return counts
+
+
+def _call_site_paths():
+    """Paths (o) and (p); returns the launch counts of each."""
+    line = _line_setup()
+    return {"4o A": _line_path("A", (G1,), line),
+            "4o B": _line_path("B", (G1, G2), line),
+            "4p": _plate_path(_plate_setup())}
+
+
+def _line_step_bodies(card):
+    """The Unfold step bodies one run of each 4o route executes: route A's
+    full re-scans grow with t (O(T²) per run), route B's extension runs
+    one per new step (O(T)); the MH re-scans are the same in both."""
+    model, unfold, y = _line_setup()
+    for route in ("A", "B"):
+        before = unfold.steps_run
+        _line_run(route, model)(_gen(910), y, N_LINE)
+        print(f"[5 4o route {route}] Unfold step bodies per run "
+              f"{unfold.steps_run - before} (N={N_LINE}, T={T_LINE}); card "
+              f"{card}")
+
+
 def _config34_rows(y_obs):
     """(label, run, y, n, syncs allowed) of the cells timed together: the
-    object-motion filter (systematic, N=100K) beside configs 3 and 4, so
-    a slow host shows in all of them and a slow config alone."""
+    object-motion filter (systematic, N=100K) beside configs 3 and 4 and
+    the call-site cells 4o and 4p, so a slow host shows in all of them and
+    a slow cell alone."""
     _, y, sv_run = _sv_setup()
+    line_model, _, y_line = _line_setup()
     return [(f"object motion systematic N={N_MAIN} T={T_MAIN}",
              _filter("systematic"), y_obs, N_MAIN, MAX_SYNCS),
             (f"config 3 SV N={N_SV} T={T_SV}", sv_run, y, N_SV, T_SV - 1),
             (f"config 4 tempered N={N_TM} K={K_TM}", _tm_run, None, N_TM,
              K_TM - 1),
             (f"config 4 SMCP3 N={N_TM} K={K_TM}", _smcp3_run, None, N_TM,
-             K_TM - 1)]
+             K_TM - 1),
+            (f"4o line model route A N={N_LINE} T={T_LINE}",
+             _line_run("A", line_model), y_line, N_LINE, T_LINE),
+            (f"4o line model route B N={N_LINE} T={T_LINE}",
+             _line_run("B", line_model), y_line, N_LINE, T_LINE),
+            (f"4p plate N={N_PLATE} n={D_PLATE}", _plate_run(_plate_setup()),
+             None, N_PLATE, 0)]
 
 
 def _host_state():
@@ -1607,6 +1884,7 @@ def _config34_timing(card, y_obs):
         if total > max_syncs:
             raise AssertionError(f"{label}: {total} host syncs per run, more "
                                  f"than the {max_syncs} ESS checks")
+    _line_step_bodies(card)
     for n in (N_MAIN, 1_000_000):
         w = torch.rand(n, generator=gen, device="cuda")
         w = w / w.sum()

@@ -5,9 +5,10 @@ from .distributions import (Distribution, Normal, Bernoulli, UniformDiscrete,
                             factor)
 from .gfi import (Trace, GenFn, DynamicGenFn, gen, trace, NoChange,
                   UnknownChange, Extend, batched_interpretation,
-                  current_batch, simulate, generate, assess, update,
-                  regenerate)
-from .combinators import Unfold
+                  current_batch, simulate, generate, propose, assess, update,
+                  regenerate, get_choices, get_args, get_retval, get_score,
+                  get_gen_fn)
+from .combinators import Unfold, MapCombinator
 
 __all__ = ["ChoiceMap", "Entry", "Selection", "EMPTY", "ALL",
            "select", "choicemap", "normalize_address", "Distribution",
@@ -15,4 +16,6 @@ __all__ = ["ChoiceMap", "Entry", "Selection", "EMPTY", "ALL",
            "bernoulli", "uniform_discrete", "factor", "Trace", "GenFn",
            "DynamicGenFn", "gen", "trace", "NoChange", "UnknownChange",
            "Extend", "batched_interpretation", "current_batch", "simulate",
-           "generate", "assess", "update", "regenerate", "Unfold"]
+           "generate", "propose", "assess", "update", "regenerate",
+           "get_choices", "get_args", "get_retval", "get_score",
+           "get_gen_fn", "Unfold", "MapCombinator"]

@@ -89,6 +89,11 @@ class ChoiceMap:
                 out.setdefault(k[0], {})[k[1:]] = v
         return {i: ChoiceMap(d) for i, d in out.items()}
 
+    def str_keyed(self) -> "ChoiceMap":
+        """Entries whose first component is NOT an int."""
+        return ChoiceMap({k: v for k, v in self.entries.items()
+                          if not (k and isinstance(k[0], int))})
+
     def locate(self, addr):
         """Resolve ``addr`` to ``(entry_key, idxs, entry)``: the stored
         address that matched, the int components consumed as indices into
@@ -107,8 +112,19 @@ class ChoiceMap:
         return kv[0], tuple(idxs), kv[1]
 
     def resolve(self, addr):
-        """The entry stored at exactly ``addr``, or None."""
-        return self.entries.get(normalize_address(addr))
+        """The entry at ``addr``, or None. Int components that no stored
+        address holds index the leading combinator axes of a dense entry,
+        as ``("line", 3, "y")`` does a dense ``("line", "y")`` entry."""
+        loc = self.locate(addr)
+        if loc is None:
+            return None
+        _, idxs, e = loc
+        if not idxs:
+            return e
+        if e.mask is True:
+            return Entry(e.value[idxs], True)
+        m = torch.as_tensor(e.mask).to(torch.bool)
+        return Entry(e.value[idxs], m[idxs[:m.dim()]])
 
     def __getitem__(self, addr):
         e = self.resolve(addr)
@@ -212,6 +228,21 @@ class Selection:
             return ALL
         return Selection({k[1:]: v for k, v in self.entries.items()
                           if k and k[0] == name})
+
+    def int_keyed(self):
+        """Entries whose first component is an int: {int: sub-Selection}."""
+        out: Dict[int, Dict[Address, object]] = {}
+        for k, v in self.entries.items():
+            if k and isinstance(k[0], int):
+                out.setdefault(k[0], {})[k[1:]] = v
+        return {i: Selection(d) for i, d in out.items()}
+
+    def str_keyed(self) -> "Selection":
+        """Entries whose first component is NOT an int."""
+        if self.all_:
+            return ALL
+        return Selection({k: v for k, v in self.entries.items()
+                          if not (k and isinstance(k[0], int))})
 
     def mask_at_leaf(self):
         """Selection mask at the empty address: True / False / bool tensor."""

@@ -1,17 +1,30 @@
-"""``Unfold``: the state-space combinator, batched form.
+"""Combinators, batched form: ``Unfold`` (state-space scan) and
+``MapCombinator`` (plate).
 
 An ``Unfold(step, max_steps)`` trace holds the step sub-traces stacked
 along a static time axis in packed step storage (core/packed.py,
 ``mat [T*R, N]``) plus the active length ``t`` — a Python int, shared by
 all particles — and the carry cache: the state carried out of the last
-active step, one ``[N]`` tensor per leaf. Extension writes the new steps'
-rows; nothing is reallocated.
+active step, one ``[N]`` tensor per leaf. A trace reached through
+``mask_trace`` also holds an ``outer_mask`` (static ``False`` or a
+per-particle bool): old steps are present only where it is set.
 
-Ported paths: ``generate`` (built by extending an empty trace), the O(k)
-``Extend(k)`` update, and the O(window) rejuvenation paths
-(``regenerate_delta`` / ``apply_regenerate_delta``, ``_regenerate_window``,
-``_sel_logp_window``). The full re-scan interpreters wait for a later
-slice, so every other update or regenerate raises.
+Interpreters: ``generate`` (an empty trace extended over the active
+steps), the O(k) ``Extend(k)`` update, the O(window) rejuvenation paths
+(``regenerate_delta`` / ``apply_regenerate_delta``,
+``_regenerate_window``, ``_sel_logp_window``) and the full re-scans
+(``simulate``, ``assess``, ``_update``, ``_regenerate``, ``_sel_logp``).
+The JAX package scans all ``T`` steps under ``lax.cond``; here the active
+length is a Python int, so a re-scan loops over the active steps only and
+leaves the rows of inactive steps (unspecified in both packages) as they
+were.
+
+Per-timestep (int-keyed) constraints and selections such as
+``("line", 3, "y")`` reach the step they name as that step's own
+entries, so a host value enters by a fill kernel and no device mask is
+read; where they decide the layout (an empty trace) they count as the
+JAX package's dense ``[T]``-masked entries: the site is stored per
+particle.
 """
 
 from __future__ import annotations
@@ -19,21 +32,26 @@ from __future__ import annotations
 import torch
 
 from .choicemap import ChoiceMap, Entry, Selection, EMPTY
-from .gfi import GenFn, Trace, Extend, NoChange, current_batch, _where_lead
+from .gfi import (GenFn, Trace, Extend, NoChange, current_batch, _where_lead,
+                  _to_batch, _batch_tree, _assess_device)
 from .packed import (StepStorage, make_storage, unpack_tree, read_step,
-                     write_steps, zeros_column, pack_column)
-from .tree import tree_leaves, tree_map
+                     write_steps, zeros_column, pack_column, fits_layout)
+from .tree import (tree_leaves, tree_map, tree_flatten, tree_unflatten,
+                   flatten_up_to)
 
-__all__ = ["Unfold"]
+__all__ = ["Unfold", "MapCombinator"]
 
 
-def _inner_c(store, t, carry):
-    """Unfold trace payload: the packed step storage, the active length and
+def _inner_c(store, t, carry, outer_mask=True):
+    """Unfold trace payload: the packed step storage, the active length,
+    the outer mask (its key exists only when the mask is not ``True``) and
     the ``carry`` cache — the retval tree AFTER the last active step. The
     cache is kept only for SCALAR-per-particle carries (``[b]`` leaves
     under batched interpretation): a wide carry would cost a transpose in
     every resampling pack, where the row read it replaces is cheap."""
     d = {"store": store, "t": t}
+    if outer_mask is not True:
+        d["outer_mask"] = outer_mask
     b = current_batch()
     want = () if b is None else (b,)
     for leaf in tree_leaves(carry):
@@ -41,6 +59,10 @@ def _inner_c(store, t, carry):
             return d
     d["carry"] = carry
     return d
+
+
+def _outer_mask(tr: Trace):
+    return tr.inner.get("outer_mask", True)
 
 
 def _trace_carry(tr: Trace):
@@ -67,6 +89,53 @@ def _col_tree(steps_col, state):
     return {"retval": state, "steps": steps_col}
 
 
+def _batch_state0(state0, b, device):
+    """Every carried-state leaf with a leading particle axis, as the JAX
+    package's full scans carry it: shared initial states broadcast, so a
+    carry computed from them (the line model's ``x = t + 1``) is stored per
+    particle on every path."""
+    return tree_map(lambda l: _to_batch(l, b, device), state0)
+
+
+def _where_state(m, new, old):
+    """``new`` where the presence mask ``m`` (True, False or a
+    per-particle bool) holds, else ``old``, leaf by leaf."""
+    if m is True:
+        return new
+    if m is False:
+        return old
+    return tree_map(lambda a, b: _where_lead(m, a, b), new, old)
+
+
+def _and_lead(mask, active):
+    """AND an entry mask (over the leading axes of its value) with a
+    time-leading activity mask ``active`` ([T] or [T, b])."""
+    if mask is False:
+        return False
+    if mask is True:
+        return active
+    m = torch.as_tensor(mask).to(torch.bool)
+    a = active
+    if m.dim() < a.dim():
+        m = m.reshape(tuple(m.shape) + (1,) * (a.dim() - m.dim()))
+    else:
+        a = a.reshape(tuple(a.shape) + (1,) * (m.dim() - a.dim()))
+    return torch.logical_and(m, a)
+
+
+def _stack_padded(states, T):
+    """Stack a list of per-step state trees (``len <= T``) along a new
+    leading time axis, repeating the last one up to ``T`` steps (the JAX
+    full scans carry the last active state through inactive steps)."""
+    states = states + [states[-1]] * (T - len(states))
+
+    def stack(*xs):
+        xs = [torch.as_tensor(x) for x in xs]
+        shape = torch.broadcast_shapes(*[tuple(x.shape) for x in xs])
+        return torch.stack([x.expand(shape) for x in xs])
+    return tree_map(stack, *states)
+
+
 class Unfold(GenFn):
     """Markov-chain combinator over a step generative function.
 
@@ -79,8 +148,10 @@ class Unfold(GenFn):
     def __init__(self, step: GenFn, max_steps: int):
         self.step = step
         self.T = int(max_steps)
-        #: step bodies run by the O(k) extension path — one per new step;
-        #: a full re-scan would run all T
+        #: step bodies run on steps so far (an empty trace's layout probe
+        #: is not counted): the O(k) extension runs one per new step, a
+        #: full re-scan one per active step and pass (a regenerate that
+        #: recomputes sel_old runs two)
         self.steps_run = 0
 
     @property
@@ -104,14 +175,44 @@ class Unfold(GenFn):
                 "per-particle form is not ported yet")
         return b
 
+    def _check_length(self, t):
+        if not 0 <= t <= self.T:
+            raise ValueError(f"t_active={t} outside [0, {self.T}]")
+
+    def active_mask(self, tr: Trace):
+        """Bool mask of the ACTIVE steps: ``[T]``, or ``[b, T]`` under a
+        per-particle outer mask. Retval and choice slots at inactive steps
+        are unspecified: mask any per-step read with this."""
+        a = torch.arange(self.T, device=tr.score.device) < tr.inner["t"]
+        om = _outer_mask(tr)
+        if om is True:
+            return a
+        if om is False:
+            return torch.zeros_like(a)
+        return torch.logical_and(a, om[..., None] if om.dim() else om)
+
+    def _active_tb(self, t_active, outer_mask, device):
+        """Interpreter-internal active mask in TIME-LEADING orientation:
+        ``[T]``, or ``[T, b]`` under a per-particle outer mask."""
+        a = torch.arange(self.T, device=device) < t_active
+        if outer_mask is True:
+            return a
+        if outer_mask is False:
+            return torch.zeros_like(a)
+        om = outer_mask.to(torch.bool)
+        return torch.logical_and(a.reshape((self.T,) + (1,) * om.dim()),
+                                 om[None])
+
+    @staticmethod
+    def _old_active(t, t_old, outer_mask):
+        """Presence of old step ``t`` in a re-scan: absent past the old
+        length, else the outer mask."""
+        return False if t >= t_old else outer_mask
+
     def _slice_cm(self, cm: ChoiceMap) -> ChoiceMap:
         """Dense per-address entries with a leading T axis. Entries whose
         mask is the static True stay statically constrained, so handlers
         store those sites SHARED and never sample them."""
-        if cm.int_keyed():
-            raise NotImplementedError(
-                "per-timestep (int-keyed) constraints are not ported yet; "
-                "pass dense [T, ...] entries with [T] masks")
         out = {}
         for k, e in cm.entries.items():
             v = torch.as_tensor(e.value)
@@ -126,11 +227,38 @@ class Unfold(GenFn):
             out[k] = Entry(v, m)
         return ChoiceMap(out)
 
+    def _densify(self, cm: ChoiceMap):
+        """``(dense, by_t)``: the dense ``[T]``-leading entries of the
+        str-keyed part, and the int-keyed part as ``{t: sub-map}``."""
+        by_t = cm.int_keyed()
+        for t in by_t:
+            if not 0 <= t < self.T:
+                raise IndexError(
+                    f"constraint timestep {t} out of range [0,{self.T})")
+        return self._slice_cm(cm.str_keyed()), by_t
+
     @staticmethod
-    def _step_cm(dense: ChoiceMap, t: int) -> ChoiceMap:
-        return ChoiceMap({k: Entry(e.value[t],
-                                   True if e.mask is True else e.mask[t])
-                          for k, e in dense.entries.items()})
+    def _step_cm(dense: ChoiceMap, by_t, t: int) -> ChoiceMap:
+        """Step ``t``'s constraints: the dense slice, where the int-keyed
+        entries for ``t`` win (the JAX package's densify merge)."""
+        cm = ChoiceMap({k: Entry(e.value[t],
+                                 True if e.mask is True else e.mask[t])
+                        for k, e in dense.entries.items()})
+        sub = by_t.get(t)
+        return cm if sub is None else cm.merge(sub)
+
+    def _layout_cm(self, dense: ChoiceMap, by_t, device) -> ChoiceMap:
+        """Step-0 constraints that decide an empty trace's layout: an
+        address constrained per timestep is a dense ``[T]``-masked entry
+        in the JAX package, so it is stored per particle; a bool-tensor
+        mask (unset here) makes the handler take that path."""
+        forced = {}
+        for sub in by_t.values():
+            for k, e in sub.entries.items():
+                forced.setdefault(k, Entry(
+                    e.value, torch.zeros((), dtype=torch.bool,
+                                         device=device)))
+        return self._step_cm(dense, {}, 0).merge(ChoiceMap(forced))
 
     def _slice_sel(self, sel: Selection) -> Selection:
         if sel.all_:
@@ -146,28 +274,78 @@ class Unfold(GenFn):
                 out[k] = mm
         return Selection(out)
 
+    def _densify_selection(self, sel: Selection):
+        """``(dense, by_t)`` of a selection, as :meth:`_densify`."""
+        if sel.all_:
+            return sel, {}
+        return self._slice_sel(sel.str_keyed()), sel.int_keyed()
+
     @staticmethod
-    def _step_sel(dsel: Selection, t: int) -> Selection:
+    def _step_sel(dsel: Selection, by_t, t: int) -> Selection:
+        """Step ``t``'s selection: the dense slice OR the int-keyed
+        entries for ``t``."""
         if dsel.all_:
             return dsel
-        return Selection({k: (m if isinstance(m, bool) else m[t])
-                          for k, m in dsel.entries.items()})
+        out = {k: (m if isinstance(m, bool) else m[t])
+               for k, m in dsel.entries.items()}
+        sub = by_t.get(t)
+        if sub is not None:
+            for k, m in sub.entries.items():
+                prev = out.get(k, False)
+                if prev is False or m is True:
+                    out[k] = m
+                elif prev is not True and m is not False:
+                    out[k] = torch.logical_or(prev, m)
+        return Selection(out)
 
     def trace_retval(self, tr: Trace):
-        """Materialized stacked retval carries [T, N, ...] (cold path)."""
-        return unpack_tree(tr.inner["store"])["retval"]
+        """Materialized stacked retval carries [T, N, ...] (only the
+        retval rows of the store are read)."""
+        return unpack_tree(tr.inner["store"], "retval")
+
+    # -- packed storage ---------------------------------------------------
+    def _write_cols(self, store: StepStorage, t0: int, cols, b):
+        """``store`` with the per-step columns ``cols`` written from step
+        ``t0``. Where a value with a particle axis lands in a leaf stored
+        shared, the layout is rebuilt from the written values, as the JAX
+        package's full scans derive it from their outputs."""
+        if not cols:
+            return store
+        if fits_layout(store, cols):
+            return write_steps(store, t0, cols)
+        leaves, td = tree_flatten(unpack_tree(store))
+        col_leaves = [flatten_up_to(td, c) for c in cols]
+        out = []
+        for i, leaf in enumerate(leaves):
+            vals = [torch.as_tensor(cl[i]) for cl in col_leaves]
+            per = tuple(leaf.shape[1:])
+            shape = torch.broadcast_shapes(per,
+                                           *[tuple(v.shape) for v in vals])
+            x = leaf.reshape((self.T,) + (1,) * (len(shape) - len(per))
+                             + per).expand((self.T,) + shape).clone()
+            for j, v in enumerate(vals):
+                x[t0 + j] = v.to(device=x.device, dtype=x.dtype)
+            out.append(x)
+        stacked = tree_unflatten(td, out)
+        from .batching import gen_spec
+        spec = _col_tree(self.step.trace_axes(stacked["steps"], 1),
+                         gen_spec(stacked["retval"], 1, b))
+        return make_storage(stacked, spec, self.T)
 
     # -- GFI --------------------------------------------------------------
     def _empty_trace(self, gen, args, constraints: ChoiceMap = EMPTY):
         """A t_active=0 trace: structural zeros. The layout comes from one
-        constrained step-0 generate (it draws from ``gen``), so sites fully
-        constrained by ``constraints`` are stored SHARED, exactly as the
-        extension writes into this proto will store them."""
+        constrained step-0 generate (it draws from ``gen``) on the batched
+        initial state, so it is the layout the JAX package's full scans
+        give: sites fully constrained by dense entries are stored SHARED,
+        sites constrained per timestep and carries per particle."""
         b = self._batch()
+        device = gen.device
         _, state0, params = self._split_args(args)
-        dense = self._slice_cm(constraints)
+        dense, by_t = self._densify(constraints)
+        state0 = _batch_state0(state0, b, device)
         step_tr, _ = self.step.generate(gen, (0, state0) + params,
-                                        self._step_cm(dense, 0))
+                                        self._layout_cm(dense, by_t, device))
         col = _col_tree(_slim_steps(step_tr), step_tr.get_retval())
         stacked = tree_map(
             lambda l: torch.zeros((self.T,) + tuple(l.shape), dtype=l.dtype,
@@ -177,8 +355,7 @@ class Unfold(GenFn):
                          gen_spec(stacked["retval"], 1, b))
         store = make_storage(stacked, spec, self.T)
         carry = tree_map(torch.zeros_like, step_tr.get_retval())
-        score = torch.zeros((b,), dtype=torch.float32,
-                            device=step_tr.score.device)
+        score = torch.zeros((b,), dtype=torch.float32, device=device)
         return Trace(self, (0, state0) + params, None, score,
                      _inner_c(store, 0, carry))
 
@@ -186,29 +363,139 @@ class Unfold(GenFn):
         """Build the trace by extending an empty trace over the ``t_active``
         steps (weight = score − logq = Σ log p(constrained))."""
         k = self._split_args(args)[0]
-        if not 0 <= k <= self.T:
-            raise ValueError(f"t_active={k} outside [0, {self.T}]")
+        self._check_length(k)
         tr0 = self._empty_trace(gen, args, constraints)
         if k == 0:
-            return tr0, torch.zeros_like(tr0.score)
+            return (Trace(self, args, None, tr0.score, tr0.inner),
+                    torch.zeros_like(tr0.score))
         new_tr, logq, _ = self._update_extend(gen, tr0, args, constraints, k)
         return new_tr, new_tr.score - logq
+
+    def simulate(self, gen, args):
+        """Unconstrained generate: every active step sampled."""
+        return self.generate(gen, args, EMPTY)[0]
+
+    def assess(self, args, choices: ChoiceMap):
+        """``(stacked states, score)`` of the active steps run on
+        ``choices``, every address of which must be covered at every
+        active step (a device mask is read to check it)."""
+        b = self._batch()
+        t_active, state0, params = self._split_args(args)
+        self._check_length(t_active)
+        device = _assess_device(args, choices)
+        dense, by_t = self._densify(choices)
+        for k, e in dense.entries.items():
+            if e.mask is not True and t_active and not bool(
+                    e.mask[:t_active].reshape(t_active, -1).all()):
+                raise ValueError(f"assess: address {k} missing at some "
+                                 "active timesteps")
+        for k in {k for sub in by_t.values() for k in sub.entries}:
+            if k not in dense.entries and any(
+                    k not in by_t.get(t, EMPTY).entries
+                    for t in range(t_active)):
+                raise ValueError(f"assess: address {k} missing at some "
+                                 "active timesteps")
+        state = _batch_state0(state0, b, device)
+        score = torch.zeros((b,), dtype=torch.float32, device=device)
+        states = [state]
+        for t in range(t_active):
+            state, s = self.step.assess((t, state) + params,
+                                        self._step_cm(dense, by_t, t))
+            self.steps_run += 1
+            score = score + s
+            states.append(state)
+        return _stack_padded(states[1:] or states, self.T), score
 
     def _update(self, gen, tr: Trace, new_args, constraints: ChoiceMap,
                 argdiffs=None):
         if (argdiffs is not None and len(argdiffs) >= 1
                 and isinstance(argdiffs[0], Extend)
-                and all(isinstance(d, NoChange) for d in argdiffs[1:])):
+                and all(isinstance(d, NoChange) for d in argdiffs[1:])
+                and _outer_mask(tr) is True):
             return self._update_extend(gen, tr, new_args, constraints,
                                        argdiffs[0].k)
-        raise NotImplementedError(
-            "only the Extend(k) update of an Unfold is ported; the full "
-            "re-scan update waits for a later slice")
+        return self._update_full(gen, tr, new_args, constraints)
+
+    def _update_full(self, gen, tr: Trace, new_args, constraints: ChoiceMap):
+        """The full re-scan update: every new active step is updated from
+        its old column (present where ``t < t_old`` and the outer mask
+        holds). Discards: the overwritten choices of the new active steps,
+        and the choices of the steps a shrinking ``t`` deactivates."""
+        b = self._batch()
+        t_new, state0, params = self._split_args(new_args)
+        self._check_length(t_new)
+        t_old, om = tr.inner["t"], _outer_mask(tr)
+        store = tr.inner["store"]
+        device = tr.score.device
+        dense, by_t = self._densify(constraints)
+        state = _batch_state0(state0, b, device)
+        score = torch.zeros((b,), dtype=torch.float32, device=device)
+        logq = torch.zeros((), dtype=torch.float32, device=device)
+        cols, discs = [], []
+        for t in range(t_new):
+            old_step = self.step.mask_trace(
+                read_step(store, t)["steps"],
+                self._old_active(t, t_old, om))
+            new_step, logq_t, disc_t = self.step._update(
+                gen, old_step, (t, state) + params,
+                self._step_cm(dense, by_t, t))
+            self.steps_run += 1
+            state = new_step.get_retval()
+            cols.append(_col_tree(_slim_steps(new_step), state))
+            score = score + new_step.score
+            logq = logq + logq_t
+            discs.append(disc_t)
+        discard = self._stack_discards(discs, device).merge(
+            self._shrink_discard(tr, t_new, t_old, om, device))
+        inner = _inner_c(self._write_cols(store, 0, cols, b), t_new, state)
+        return Trace(self, new_args, None, score, inner), logq, discard
+
+    def _stack_discards(self, discs, device) -> ChoiceMap:
+        """Per-step discard maps -> dense ``[T]``-leading entries (value
+        zeros and mask unset at steps that discarded nothing). Only
+        addresses some step discarded appear, so an update that
+        overwrote nothing returns an empty map and nothing is read."""
+        keys = []
+        for d in discs:
+            keys += [k for k in d.entries if k not in keys]
+        out = {}
+        for k in keys:
+            present = [(t, d.entries[k]) for t, d in enumerate(discs)
+                       if k in d.entries]
+            vals = [torch.as_tensor(e.value).to(device) for _, e in present]
+            vshape = torch.broadcast_shapes(*[tuple(v.shape) for v in vals])
+            mshape = torch.broadcast_shapes(
+                *[tuple(e.mask.shape) for _, e in present
+                  if isinstance(e.mask, torch.Tensor)], ())
+            value = torch.zeros((self.T,) + vshape, dtype=vals[0].dtype,
+                                device=device)
+            mask = torch.zeros((self.T,) + mshape, dtype=torch.bool,
+                               device=device)
+            for (t, e), v in zip(present, vals):
+                value[t] = v.expand(vshape)
+                mask[t] = True if e.mask is True else e.mask.expand(mshape)
+            out[k] = Entry(value, mask)
+        return ChoiceMap(out)
+
+    def _shrink_discard(self, tr, t_new, t_old, om, device) -> ChoiceMap:
+        """The old choices of the steps in ``[t_new, t_old)``."""
+        if t_new >= t_old or om is False:
+            return EMPTY
+        old = self.step.trace_choices(unpack_tree(tr.inner["store"],
+                                                  "steps"))
+        steps = torch.arange(self.T, device=device)
+        shrink = torch.logical_and(steps >= t_new, steps < t_old)
+        if om is not True:
+            shrink = torch.logical_and(
+                shrink.reshape((self.T,) + (1,) * om.dim()), om[None])
+        return ChoiceMap({k: Entry(e.value, _and_lead(e.mask, shrink))
+                          for k, e in old.entries.items()})
 
     def _update_extend(self, gen, tr: Trace, new_args,
                        constraints: ChoiceMap, k: int):
         """O(k) trace extension: run only the k newly activated steps and
         write their rows into a copy of the packed storage."""
+        b = self._batch()
         t_new, state0, params = self._split_args(new_args)
         t_old = tr.inner["t"]
         if t_new != t_old + k or t_new > self.T:
@@ -216,10 +503,11 @@ class Unfold(GenFn):
                 f"Extend({k}) from t={t_old} must reach t={t_old + k} <= "
                 f"max_steps={self.T}, got new active length {t_new}")
         old_store = tr.inner["store"]
-        dense = self._slice_cm(constraints)
-        state = _trace_carry(tr) if t_old > 0 else state0
-
+        dense, by_t = self._densify(constraints)
         device = tr.score.device
+        state = (_trace_carry(tr) if t_old > 0
+                 else _batch_state0(state0, b, device))
+
         score_add = torch.zeros((), dtype=torch.float32, device=device)
         logq = torch.zeros((), dtype=torch.float32, device=device)
         # proto: a structurally identical step trace masked fully absent —
@@ -229,14 +517,15 @@ class Unfold(GenFn):
         for j in range(int(k)):
             t = t_old + j
             new_step, logq_t, _ = self.step._update(
-                gen, proto, (t, state) + params, self._step_cm(dense, t))
+                gen, proto, (t, state) + params,
+                self._step_cm(dense, by_t, t))
             self.steps_run += 1
             state = new_step.get_retval()
             cols.append(_col_tree(_slim_steps(new_step), state))
             score_add = score_add + new_step.score
             logq = logq + logq_t
 
-        store = write_steps(old_store, t_old, cols)
+        store = self._write_cols(old_store, t_old, cols, b)
         inner = _inner_c(store, t_new, state)
         new_tr = Trace(self, new_args, None, tr.score + score_add, inner)
         return new_tr, logq, ChoiceMap({})
@@ -244,6 +533,8 @@ class Unfold(GenFn):
     def _window_start(self, tr: Trace, new_args, k: int):
         """(t_old, store, t_start, new-args state entering the window, old
         state entering it, params, old params)."""
+        b = self._batch()
+        device = tr.score.device
         _, state0, params = self._split_args(new_args)
         t_old = tr.inner["t"]
         store = tr.inner["store"]
@@ -255,7 +546,8 @@ class Unfold(GenFn):
         if t_start > 0:
             prev = read_step(store, t_start - 1)["retval"]
             return t_old, store, t_start, prev, prev, params, old_params
-        return t_old, store, t_start, state0, old_state0, params, old_params
+        return (t_old, store, t_start, _batch_state0(state0, b, device),
+                _batch_state0(old_state0, b, device), params, old_params)
 
     def _window_pass(self, gen, tr: Trace, new_args, selection: Selection,
                      k: int):
@@ -265,7 +557,7 @@ class Unfold(GenFn):
         and ``last_state`` is the state after the window."""
         (t_old, store, t_start, state, old_state, params,
          old_params) = self._window_start(tr, new_args, k)
-        dsel = self._slice_sel(selection)
+        dsel, sel_by_t = self._densify_selection(selection)
         device = tr.score.device
         cols = []
         score_delta = torch.zeros((), dtype=torch.float32, device=device)
@@ -274,7 +566,7 @@ class Unfold(GenFn):
         for t in range(max(t_start, 0), t_old):
             old_col = read_step(store, t)
             old_step = old_col["steps"]
-            step_sel = self._step_sel(dsel, t)
+            step_sel = self._step_sel(dsel, sel_by_t, t)
             # one forced old-value pass recovers BOTH the reverse-proposal
             # lp (sel_old) and the old step score
             _, so_t, old_score_t = self.step._sel_logp(
@@ -282,6 +574,7 @@ class Unfold(GenFn):
             new_step, sn_t, _ = self.step._regenerate(
                 gen, old_step, (t, state) + params, step_sel,
                 need_sel_old=False)
+            self.steps_run += 2
             state = new_step.get_retval()
             cols.append((t, _slim_steps(new_step), state))
             score_delta = score_delta + (new_step.score - old_score_t)
@@ -294,14 +587,14 @@ class Unfold(GenFn):
                          selection: Selection, window=None):
         """O(window) rejuvenation delta: recompute only the last ``window``
         active steps and return their columns; :meth:`apply_regenerate_delta`
-        writes them under an accept mask.
+        writes them under an accept mask. Without ``window`` (or under an
+        outer mask) the delta is the full re-scan's new trace.
 
-        Caller promise: the selection only touches the last ``window``
-        active steps AND the args are unchanged."""
-        if window is None:
-            raise NotImplementedError(
-                "Unfold.regenerate_delta needs window=k; the full re-scan "
-                "regenerate is not ported yet")
+        Caller promise with ``window``: the selection only touches the last
+        ``window`` active steps AND the args are unchanged."""
+        if window is None or _outer_mask(tr) is not True:
+            return super().regenerate_delta(gen, tr, new_args, argdiffs,
+                                            selection, window=window)
         cols, state, score_delta, sel_new, sel_old = self._window_pass(
             gen, tr, new_args, selection, int(window))
         delta = {"cols": cols, "t_old": tr.inner["t"], "last_state": state,
@@ -312,6 +605,8 @@ class Unfold(GenFn):
         """The accepted-or-original trace from a regenerate delta: each
         window step's rows are selected by the per-particle ``accept`` mask
         and written into a copy of the packed storage."""
+        if isinstance(delta, Trace):
+            return super().apply_regenerate_delta(tr, delta, accept)
         cols = delta["cols"]
         store = tr.inner["store"]
         R = store.layout.R
@@ -346,12 +641,54 @@ class Unfold(GenFn):
 
     def _regenerate(self, gen, tr: Trace, new_args, selection: Selection,
                     window=None, old_args=None, need_sel_old=True):
-        if window is None:
-            raise NotImplementedError(
-                "Unfold.regenerate needs window=k; the full re-scan "
-                "regenerate is not ported yet")
-        return self._regenerate_window(gen, tr, new_args, selection,
-                                       int(window))
+        if window is not None and _outer_mask(tr) is True:
+            return self._regenerate_window(gen, tr, new_args, selection,
+                                           int(window))
+        return self._regenerate_full(gen, tr, new_args, selection, old_args,
+                                     need_sel_old)
+
+    def _regenerate_full(self, gen, tr: Trace, new_args,
+                         selection: Selection, old_args, need_sel_old):
+        """The full re-scan regenerate. ``sel_old`` of each step is
+        recomputed under the OLD args (``old_args``, else the stored ones,
+        else ``new_args``) and the old carries entering it."""
+        b = self._batch()
+        t_new, state0, params = self._split_args(new_args)
+        self._check_length(t_new)
+        t_old, om = tr.inner["t"], _outer_mask(tr)
+        store = tr.inner["store"]
+        device = tr.score.device
+        src = old_args if old_args is not None else tr.args
+        if src:
+            _, old_state0, old_params = self._split_args(src)
+        else:
+            old_state0, old_params = state0, params
+        old_prev = _batch_state0(old_state0, b, device)
+        state = _batch_state0(state0, b, device)
+        dsel, sel_by_t = self._densify_selection(selection)
+        score = torch.zeros((b,), dtype=torch.float32, device=device)
+        sel_new = torch.zeros((), dtype=torch.float32, device=device)
+        sel_old = torch.zeros((), dtype=torch.float32, device=device)
+        cols = []
+        for t in range(t_new):
+            old_col = read_step(store, t)
+            old_step = self.step.mask_trace(old_col["steps"],
+                                            self._old_active(t, t_old, om))
+            new_step, sn_t, so_t = self.step._regenerate(
+                gen, old_step, (t, state) + params,
+                self._step_sel(dsel, sel_by_t, t),
+                old_args=(t, old_prev) + old_params,
+                need_sel_old=need_sel_old)
+            self.steps_run += 2 if need_sel_old else 1
+            state = new_step.get_retval()
+            cols.append(_col_tree(_slim_steps(new_step), state))
+            score = score + new_step.score
+            sel_new = sel_new + sn_t
+            sel_old = sel_old + so_t
+            old_prev = old_col["retval"]
+        inner = _inner_c(self._write_cols(store, 0, cols, b), t_new, state)
+        return (Trace(self, new_args, None, score, inner), sel_new,
+                sel_old)
 
     def _regenerate_window(self, gen, tr: Trace, new_args,
                            selection: Selection, k: int):
@@ -363,33 +700,67 @@ class Unfold(GenFn):
         store = tr.inner["store"]
         carry = _trace_carry(tr)
         if cols:
-            store = write_steps(store, cols[0][0],
-                                [_col_tree(col, s) for _, col, s in cols])
+            store = self._write_cols(
+                store, cols[0][0], [_col_tree(col, s) for _, col, s in cols],
+                self._batch())
             carry = state
         inner = _inner_c(store, tr.inner["t"], carry)
         new_tr = Trace(self, new_args, None, tr.score + score_delta, inner)
         return new_tr, sel_new, sel_old
+
+    def _sel_logp(self, tr: Trace, args, selection: Selection, window=None):
+        """Force the old trace's values under ``args``: ``(stacked states,
+        Σ selected old log-probs, Σ old log-probs)``. With ``window`` (the
+        same promise as :meth:`regenerate_delta`) only the last ``window``
+        steps are forced and the score term covers only them."""
+        if window is not None and _outer_mask(tr) is True:
+            return self._sel_logp_window(tr, args, selection, int(window))
+        b = self._batch()
+        _, state0, params = self._split_args(args)
+        t_old, om = tr.inner["t"], _outer_mask(tr)
+        store = tr.inner["store"]
+        device = tr.score.device
+        dsel, sel_by_t = self._densify_selection(selection)
+        state = _batch_state0(state0, b, device)
+        sel_old = torch.zeros((), dtype=torch.float32, device=device)
+        score = torch.zeros((), dtype=torch.float32, device=device)
+        states = [state]
+        for t in range(t_old if om is not False else 0):
+            old_step = read_step(store, t)["steps"]
+            if om is not True:
+                old_step = self.step.mask_trace(old_step, om)
+            rv, so, sc = self.step._sel_logp(
+                old_step, (t, state) + params,
+                self._step_sel(dsel, sel_by_t, t))
+            self.steps_run += 1
+            state = _where_state(om, rv, state)
+            states.append(state)
+            sel_old = sel_old + so
+            score = score + sc
+        return _stack_padded(states[1:] or states, self.T), sel_old, score
 
     def _sel_logp_window(self, tr: Trace, args, selection: Selection,
                          k: int):
         """O(k) forced pass over the last k active steps (``args`` are the
         args the trace was produced under). Returns the stored retvals, the
         selected old log-probs and the windowed old score."""
+        b = self._batch()
         _, state0, params = self._split_args(args)
         t_old = tr.inner["t"]
         store = tr.inner["store"]
-        dsel = self._slice_sel(selection)
+        dsel, sel_by_t = self._densify_selection(selection)
+        device = tr.score.device
         t_start = t_old - k
         old_state = (read_step(store, t_start - 1)["retval"] if t_start > 0
-                     else state0)
-        device = tr.score.device
+                     else _batch_state0(state0, b, device))
         sel_old = torch.zeros((), dtype=torch.float32, device=device)
         score = torch.zeros((), dtype=torch.float32, device=device)
         for t in range(max(t_start, 0), t_old):
             old_col = read_step(store, t)
             _, so_t, sc_t = self.step._sel_logp(
                 old_col["steps"], (t, old_state) + params,
-                self._step_sel(dsel, t))
+                self._step_sel(dsel, sel_by_t, t))
+            self.steps_run += 1
             sel_old = sel_old + so_t
             score = score + sc_t
             old_state = old_col["retval"]
@@ -398,35 +769,87 @@ class Unfold(GenFn):
     # -- structure --------------------------------------------------------
     def trace_choices(self, tr: Trace) -> ChoiceMap:
         """Stacked choices ``[T, N, ...]`` (shared sites ``[T, ...]``),
-        each masked by the active steps."""
-        steps = unpack_tree(tr.inner["store"])["steps"]
+        each masked by the active steps (and the outer mask)."""
+        steps = unpack_tree(tr.inner["store"], "steps")
         stacked = self.step.trace_choices(steps)
-        active = (torch.arange(self.T, device=tr.score.device)
-                  < tr.inner["t"])
-        out = {}
-        for k, e in stacked.entries.items():
-            m = active if e.mask is True else torch.logical_and(
-                e.mask, active.reshape((self.T,) + (1,) * (e.mask.dim() - 1)))
-            out[k] = Entry(e.value, m)
-        return ChoiceMap(out)
+        active = self._active_tb(tr.inner["t"], _outer_mask(tr),
+                                 tr.score.device)
+        return ChoiceMap({k: Entry(e.value, _and_lead(e.mask, active))
+                          for k, e in stacked.entries.items()})
+
+    def mask_trace(self, tr: Trace, m) -> Trace:
+        om = _outer_mask(tr)
+        if m is True:
+            new_om = om
+        elif om is True or m is False:
+            new_om = m
+        elif om is False:
+            new_om = False
+        else:
+            new_om = torch.logical_and(om, m)
+        inner = {k: v for k, v in tr.inner.items() if k != "outer_mask"}
+        if new_om is not True:
+            inner["outer_mask"] = new_om
+        return Trace(tr.gen_fn, tr.args, tr.retval, tr.score, inner)
+
+    def batch_stored_args(self, tr: Trace, batch: int) -> Trace:
+        """Sub-call storage: the initial state and params get the particle
+        axis; the lockstep active length (``args[0]``) stays shared."""
+        if not tr.args:
+            return tr
+        args = (tr.args[0],) + tuple(
+            _batch_tree(a, batch, tr.score.device) for a in tr.args[1:])
+        return Trace(self, args, tr.retval, tr.score, tr.inner)
+
+    def select_trace(self, accept, new_tr: Trace, old_tr: Trace) -> Trace:
+        """Accept/reject select keeping the lockstep active length and the
+        args of the NEW trace. A per-particle ``[b]`` accept aligns with
+        the LANE axis of the packed ``mat [T*R, b]``."""
+        from .gfi import select_batched
+        new_st, old_st = new_tr.inner["store"], old_tr.inner["store"]
+        if (new_st.layout.specs != old_st.layout.specs
+                or new_st.layout.R != old_st.layout.R):
+            raise ValueError("select_trace: the two Unfold traces have "
+                             "different storage layouts")
+        acc_t = accept if accept.dim() == 0 else accept[None]
+        store = select_batched(acc_t, new_st, old_st)
+        om_new, om_old = _outer_mask(new_tr), _outer_mask(old_tr)
+        if om_new is True and om_old is True:
+            om = True
+        else:
+            def as_mask(m):
+                if isinstance(m, bool):
+                    return torch.full((), m, dtype=torch.bool,
+                                      device=accept.device)
+                return m
+            om = _where_lead(accept, as_mask(om_new), as_mask(om_old))
+        inner = {"store": store, "t": new_tr.inner["t"]}
+        if om is not True:
+            inner["outer_mask"] = om
+        if "carry" in new_tr.inner and "carry" in old_tr.inner:
+            inner["carry"] = tree_map(
+                lambda nw, od: _where_lead(accept, nw, od),
+                new_tr.inner["carry"], old_tr.inner["carry"])
+        return Trace(self, new_tr.args, None,
+                     _where_lead(accept, new_tr.score, old_tr.score), inner)
 
     def retval_axes(self, tr: Trace, axis: int = 0):
         """Particle-axis spec of the materialized stacked retval
-        ``[T, N, ...]`` (time-major: the particle axis follows time). It
-        materializes the retval to read its shapes: a cold path."""
+        ``[T, N, ...]`` (time-major: the particle axis follows time)."""
         from .batching import gen_spec, spec_n
         return gen_spec(self.trace_retval(tr), axis + 1,
                         spec_n(tr.score, axis))
 
     def trace_choice_axes(self, tr: Trace, axis: int = 0):
-        steps = unpack_tree(tr.inner["store"])["steps"]
+        steps = unpack_tree(tr.inner["store"], "steps")
         return self.step.trace_choice_axes(steps, axis + 1)
 
     def trace_axes(self, tr: Trace, axis: int = 0, args_shared: bool = False):
         """Time-major layout: the packed ``mat [T*R, N]`` holds the particle
         axis at ``axis+1``; the active length ``t`` is always shared; each
         extra carries the particle-axis position its layout spec recorded
-        (``None`` for shared leaves)."""
+        (``None`` for shared leaves); a per-particle outer mask sits at
+        ``axis``."""
         from .batching import gen_spec, const_spec, spec_n
         n = spec_n(tr.score, axis)
         inner = tr.inner
@@ -441,10 +864,195 @@ class Unfold(GenFn):
                       "t": None}
         if "carry" in inner:
             spec_inner["carry"] = gen_spec(inner["carry"], axis, n)
+        if "outer_mask" in inner:
+            spec_inner["outer_mask"] = gen_spec(inner["outer_mask"], axis, n)
         if args_shared:
             args_spec = const_spec(tr.args, None)
         else:
+            # sub-call position: the initial state and params derive from
+            # per-particle upstream values; the active length stays shared
             args_spec = ((None,) + tuple(gen_spec(a, axis, n)
                                          for a in tr.args[1:])
                          if tr.args else ())
         return Trace(self, args_spec, None, axis, spec_inner)
+
+
+class MapCombinator(GenFn):
+    """IID plate combinator: the kernel applied to each of ``n`` elements.
+
+    ``MapCombinator(kernel, n)`` is called with args that are shared
+    (passed whole to every element) or plate-indexed (a leading ``[n]``
+    axis, or ``[b, n, ...]`` per particle under batched interpretation);
+    every address of the trace gets the plate axis. Each element is one
+    interpretation of the kernel — batched over the particles under
+    :class:`~.gfi.batched_interpretation` — on its slice of the args,
+    constraints and old sub-trace; the element results stack the plate at
+    axis 1 where they carry the particle axis (``[b, n, ...]``,
+    particle-major) and at axis 0 otherwise (values shared across
+    particles, such as a site constrained by one ``[n]`` observation)."""
+
+    def __init__(self, kernel: GenFn, n: int):
+        self.kernel = kernel
+        self.n = int(n)
+
+    @property
+    def batch_safe(self):
+        return self.kernel.batch_safe
+
+    def __repr__(self):
+        return f"MapCombinator({self.kernel!r}, n={self.n})"
+
+    # -- per-element slicing and stacking ---------------------------------
+    def _elem_leaf(self, x, i):
+        """Element ``i`` of a leaf: ``[b, n, ...]`` at axis 1, ``[n, ...]``
+        at axis 0, anything else passes whole."""
+        shape = getattr(x, "shape", None)
+        if shape is None:
+            return x
+        b = current_batch()
+        if b is not None and len(shape) >= 2 and shape[0] == b \
+                and shape[1] == self.n:
+            return x[:, i]
+        if len(shape) >= 1 and shape[0] == self.n:
+            return x[i]
+        return x
+
+    def _elem(self, tree, i):
+        return tree_map(lambda x: self._elem_leaf(x, i), tree)
+
+    def _elem_cm(self, cm: ChoiceMap, i) -> ChoiceMap:
+        return ChoiceMap({k: Entry(self._elem_leaf(e.value, i),
+                                   e.mask if isinstance(e.mask, bool)
+                                   else self._elem_leaf(e.mask, i))
+                          for k, e in cm.entries.items()})
+
+    @staticmethod
+    def _stack(outs, device):
+        """Stack same-structured element results along the plate axis:
+        at 1 for leaves with a leading particle axis, else at 0."""
+        from .choicemap import value_on
+        b = current_batch()
+        all_leaves = [tree_flatten(o)[0] for o in outs]
+        td = tree_flatten(outs[0])[1]
+        if any(len(ls) != td.n_leaves for ls in all_leaves):
+            raise ValueError("MapCombinator: the elements' results differ "
+                             "in structure")
+        stacked = []
+        for xs in zip(*all_leaves):
+            xs = [x if isinstance(x, torch.Tensor) else value_on(x, device)
+                  for x in xs]
+            shape = torch.broadcast_shapes(*[tuple(x.shape) for x in xs])
+            ax = 1 if (b is not None and len(shape) >= 1
+                       and shape[0] == b) else 0
+            stacked.append(torch.stack([x.expand(shape) for x in xs], ax))
+        return tree_unflatten(td, stacked)
+
+    @staticmethod
+    def _psum(x):
+        """Σ over the plate axis: [n] -> scalar, [b, n] -> [b]."""
+        return x.sum() if x.dim() == 1 else x.sum(dim=1)
+
+    def _store(self, tr: Trace) -> Trace:
+        """An element trace with its stored args in the per-particle
+        layout (see GenFn.batch_stored_args)."""
+        b = current_batch()
+        return tr if b is None else self.kernel.batch_stored_args(tr, b)
+
+    def _mk(self, args, steps: Trace) -> Trace:
+        return Trace(self, args, steps.retval, self._psum(steps.score),
+                     {"steps": steps})
+
+    # -- GFI --------------------------------------------------------------
+    def simulate(self, gen, args):
+        steps = self._stack([
+            self._store(self.kernel.simulate(gen, self._elem(args, i)))
+            for i in range(self.n)], gen.device)
+        return self._mk(args, steps)
+
+    def generate(self, gen, args, constraints: ChoiceMap = EMPTY):
+        outs = []
+        for i in range(self.n):
+            tr, w = self.kernel.generate(gen, self._elem(args, i),
+                                         self._elem_cm(constraints, i))
+            outs.append((self._store(tr), w))
+        steps, ws = self._stack(outs, gen.device)
+        return self._mk(args, steps), self._psum(ws)
+
+    def assess(self, args, choices: ChoiceMap):
+        device = _assess_device(args, choices)
+        retvals, ss = self._stack([
+            self.kernel.assess(self._elem(args, i),
+                               self._elem_cm(choices, i))
+            for i in range(self.n)], device)
+        return retvals, self._psum(ss)
+
+    def _update(self, gen, tr: Trace, new_args, constraints: ChoiceMap,
+                argdiffs=None):
+        outs = []
+        for i in range(self.n):
+            s, lq, d = self.kernel._update(
+                gen, self._elem(tr.inner["steps"], i),
+                self._elem(new_args, i), self._elem_cm(constraints, i))
+            outs.append((self._store(s), lq, d.entries))
+        steps, logqs, disc = self._stack(outs, tr.score.device)
+        return self._mk(new_args, steps), self._psum(logqs), ChoiceMap(disc)
+
+    def _regenerate(self, gen, tr: Trace, new_args, selection: Selection,
+                    window=None, old_args=None, need_sel_old=True):
+        outs = []
+        for i in range(self.n):
+            s, sn, so = self.kernel._regenerate(
+                gen, self._elem(tr.inner["steps"], i),
+                self._elem(new_args, i), selection,
+                old_args=(None if old_args is None
+                          else self._elem(tuple(old_args), i)),
+                need_sel_old=need_sel_old)
+            outs.append((self._store(s), sn, so))
+        steps, sns, sos = self._stack(outs, tr.score.device)
+        return self._mk(new_args, steps), self._psum(sns), self._psum(sos)
+
+    def _sel_logp(self, tr: Trace, args, selection: Selection, window=None):
+        retvals, sos, scs = self._stack([
+            self.kernel._sel_logp(self._elem(tr.inner["steps"], i),
+                                  self._elem(args, i), selection,
+                                  window=window)
+            for i in range(self.n)], tr.score.device)
+        return retvals, self._psum(sos), self._psum(scs)
+
+    # -- structure --------------------------------------------------------
+    def trace_choices(self, tr: Trace) -> ChoiceMap:
+        return self.kernel.trace_choices(tr.inner["steps"])
+
+    def mask_trace(self, tr: Trace, m) -> Trace:
+        return Trace(tr.gen_fn, tr.args, tr.retval, tr.score,
+                     {"steps": self.kernel.mask_trace(tr.inner["steps"], m)})
+
+    def trace_axes(self, tr: Trace, axis: int = 0, args_shared: bool = False):
+        """Particle-major throughout: every leaf under the plate (nested
+        combinator traces and their args included) has its particle axis
+        at ``axis``; leaves without one are shared."""
+        from .batching import const_spec, gen_spec, spec_n
+        n = spec_n(tr.score, axis)
+        args_spec = (const_spec(tr.args, None) if args_shared
+                     else gen_spec(tr.args, axis, n))
+        return Trace(self, args_spec, const_spec(tr.retval, axis, n), axis,
+                     {"steps": const_spec(tr.inner["steps"], axis, n)})
+
+    def select_trace(self, accept, new_tr: Trace, old_tr: Trace) -> Trace:
+        """``where(accept, new, old)`` by the layout: leaves shared across
+        particles (``trace_axes`` gives ``None``) come from ``new_tr``
+        unselected — a shared ``[n]`` leaf must not meet a ``[b]``
+        accept — and the stored args pass through from ``new_tr``."""
+        spec = self.trace_axes(new_tr)
+        parts = lambda tr: (tr.retval, tr.score, tr.inner)  # noqa: E731
+        new_l, td = tree_flatten(parts(new_tr))
+        old_l = tree_flatten(parts(old_tr))[0]
+        axes = flatten_up_to(td, parts(spec))
+        out = [a if (ax is None or a is o) else _where_lead(accept, a, o)
+               for a, o, ax in zip(new_l, old_l, axes)]
+        retval, score, inner = tree_unflatten(td, out)
+        return Trace(self, new_tr.args, retval, score, inner)
+
+    def trace_choice_axes(self, tr: Trace, axis: int = 0):
+        return {k: axis for k in
+                self.kernel.trace_choice_axes(tr.inner["steps"], axis)}

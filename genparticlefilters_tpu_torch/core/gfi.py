@@ -12,6 +12,11 @@ Weight semantics (Gen's GFI contract):
 - ``update``:     weight = score_new − score_old − Σ log q(freshly sampled)
 - ``regenerate``: weight = (score_new − Σ_sel lp_new) − (score_old − Σ_sel lp_old)
 
+A body calls another generative function with ``trace(addr, gen_fn,
+args)``: each interpreter runs the callee's own verb on the constraints,
+selection or old sub-trace scoped under ``addr`` and records the
+sub-trace under ``inner["subs"]``.
+
 Batched interpretation (:class:`batched_interpretation`) runs ONE
 interpretation with ``[batch]``-leading site values: a value is
 per-particle iff its leading dimension equals the batch size, anything
@@ -33,8 +38,9 @@ from .tree import tree_map
 __all__ = [
     "Trace", "GenFn", "DynamicGenFn", "gen", "trace",
     "NoChange", "UnknownChange", "Extend", "batched_interpretation",
-    "current_batch", "simulate", "generate", "assess", "update",
-    "regenerate",
+    "current_batch", "simulate", "generate", "propose", "assess", "update",
+    "regenerate", "get_choices", "get_args", "get_retval", "get_score",
+    "get_gen_fn",
 ]
 
 
@@ -56,15 +62,22 @@ class Extend:
     """Argdiff for a combinator length argument: a promise that the new
     length equals the old plus ``k`` and that constraints only target the
     newly activated steps. It selects the O(k) extension path of
-    :class:`~.combinators.Unfold`."""
+    :class:`~.combinators.Unfold`.
 
-    __slots__ = ("k",)
+    When the Unfold is called inside a wrapping ``@gen`` model, name it:
+    ``Extend(1, at="line")`` reaches exactly that sub-call (the others are
+    updated by their full interpreters). A bare ``Extend(k)`` reaches the
+    sub-call of a model that makes exactly one."""
 
-    def __init__(self, k: int = 1):
+    __slots__ = ("k", "at")
+
+    def __init__(self, k: int = 1, at=None):
         self.k = int(k)
+        self.at = at
 
     def __repr__(self):
-        return f"Extend({self.k})"
+        return (f"Extend({self.k})" if self.at is None
+                else f"Extend({self.k}, at={self.at!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +116,9 @@ class Trace:
 
     def get_score(self):
         return self.score
+
+    def get_gen_fn(self):
+        return self.gen_fn
 
     def __getitem__(self, addr):
         """A choice value by (possibly hierarchical) address."""
@@ -202,6 +218,13 @@ class GenFn:
         """AND every choice's presence mask with ``m``."""
         raise NotImplementedError
 
+    def batch_stored_args(self, tr: Trace, batch: int) -> Trace:
+        """This trace with its STORED args broadcast to the per-particle
+        layout :meth:`trace_axes` gives args at a sub-call position
+        (batched interpretation only; see ``_Handler.record_sub``)."""
+        return Trace(self, _batch_tree(tr.args, batch, tr.score.device),
+                     tr.retval, tr.score, tr.inner)
+
     def trace_axes(self, tr: Trace, axis: int = 0,
                    args_shared: bool = False):
         """Particle-axis spec for this trace stacked across particles: the
@@ -217,6 +240,10 @@ class GenFn:
     def trace_choice_axes(self, tr: Trace, axis: int = 0):
         """``{address: particle-axis}`` for every entry of the choices."""
         return {k: axis for k in self.trace_choices(tr).entries}
+
+    def __call__(self, *args):
+        raise TypeError("inside a @gen body, call a generative function "
+                        "with trace(addr, gen_fn, args)")
 
 
 def _where_lead(cond, a, b):
@@ -293,9 +320,33 @@ def _bsum(x, batch):
     return x.sum()
 
 
+def _to_batch(v, batch, device):
+    """``v`` with a leading particle axis in batched mode: values shared
+    across particles broadcast (host values are placed on ``device`` by
+    :func:`value_on`); values whose leading dim is ``batch`` pass."""
+    if batch is None:
+        return v
+    if not isinstance(v, torch.Tensor):
+        v = value_on(v, device)
+    if v.dim() >= 1 and v.shape[0] == batch:
+        return v
+    return v.expand((batch,) + tuple(v.shape))
+
+
+def _batch_tree(x, batch, device):
+    """:func:`_to_batch` over a container, leaving nested traces alone
+    (their leaves follow their own batched layout)."""
+    if batch is None:
+        return x
+    return tree_map(
+        lambda l: l if isinstance(l, Trace) else _to_batch(l, batch, device),
+        x, is_leaf=lambda l: isinstance(l, Trace))
+
+
 def trace(addr, dist_or_gf, args=None):
     """Make a random choice at ``addr`` inside a ``@gen`` function body:
-    ``trace("x", normal(0., 1.))``."""
+    ``trace("x", normal(0., 1.))`` samples a distribution,
+    ``trace("sub", other_gen_fn, (a, b))`` calls a generative function."""
     if not _HANDLER_STACK:
         raise RuntimeError(
             "trace() called outside of a generative-function interpreter; "
@@ -304,9 +355,8 @@ def trace(addr, dist_or_gf, args=None):
     key = normalize_address(addr)
     if isinstance(dist_or_gf, Distribution):
         return h.dist_site(key, dist_or_gf)
-    raise NotImplementedError(
-        "calls to sub-generative-functions inside a @gen body are not "
-        "ported yet; only primitive distribution sites are supported")
+    return h.call_site(key, dist_or_gf,
+                       tuple(args) if args is not None else ())
 
 
 def _masked_sum(lp, m, batch=None):
@@ -367,6 +417,7 @@ class _Handler:
         self.device = torch.device(device)
         self.batch = current_batch()
         self.sites: Dict[Tuple, Entry] = {}
+        self.subs: Dict[Tuple, Trace] = {}
         self.score = self._zero()
 
     def _zero(self):
@@ -382,14 +433,27 @@ class _Handler:
             return dist.sample(self.gen)
         return dist.sample_batched(self.gen, self.batch)
 
-    def record(self, addr, value, lp):
-        if addr in self.sites:
+    def _check_new(self, addr):
+        if addr in self.sites or addr in self.subs:
             raise ValueError(f"duplicate address {addr!r} in @gen function")
+
+    def record(self, addr, value, lp):
+        self._check_new(addr)
         self.sites[addr] = Entry(value, True)
         self.score = self.score + _bsum(lp, self.batch)
 
+    def record_sub(self, addr, sub_tr: Trace):
+        self._check_new(addr)
+        if self.batch is not None:
+            # stored args of a sub-call sit at per-particle spec positions
+            # (GenFn.trace_axes): shared leaves get the particle axis (an
+            # Unfold keeps its lockstep length shared)
+            sub_tr = sub_tr.gen_fn.batch_stored_args(sub_tr, self.batch)
+        self.subs[addr] = sub_tr
+        self.score = self.score + _bsum(sub_tr.score, self.batch)
+
     def inner(self):
-        return {"sites": self.sites, "subs": {}}
+        return {"sites": self.sites, "subs": self.subs}
 
 
 class _SimulateHandler(_Handler):
@@ -397,6 +461,11 @@ class _SimulateHandler(_Handler):
         v = self.sample_site(dist)
         self.record(addr, v, dist.log_prob(v))
         return v
+
+    def call_site(self, addr, gf, args):
+        sub = gf.simulate(self.gen, args)
+        self.record_sub(addr, sub)
+        return sub.get_retval()
 
 
 class _GenerateHandler(_Handler):
@@ -427,6 +496,13 @@ class _GenerateHandler(_Handler):
         self.record(addr, v, lp)
         return v
 
+    def call_site(self, addr, gf, args):
+        sub, w = gf.generate(self.gen, args,
+                             _scope_path(self.constraints, addr))
+        self.weight = self.weight + w
+        self.record_sub(addr, sub)
+        return sub.get_retval()
+
 
 class _AssessHandler(_Handler):
     """Score given choices: every site must be in ``choices``."""
@@ -443,12 +519,22 @@ class _AssessHandler(_Handler):
         self.record(addr, v, dist.log_prob(v))
         return v
 
+    def call_site(self, addr, gf, args):
+        retval, score = gf.assess(args, _scope_path(self.choices, addr))
+        self._check_new(addr)
+        self.score = self.score + score
+        return retval
+
 
 class _UpdateHandler(_Handler):
-    def __init__(self, gen, old_inner, constraints: ChoiceMap, device):
+    def __init__(self, gen, old_inner, constraints: ChoiceMap, device,
+                 argdiffs=None, sole_subcall=False):
         super().__init__(gen, device)
         self.old_sites = old_inner["sites"]
+        self.old_subs = old_inner["subs"]
         self.constraints = constraints
+        self.argdiffs = argdiffs
+        self.sole_subcall = sole_subcall
         self.logq = self._zero()
         self.discard: Dict[Tuple, Entry] = {}
 
@@ -492,12 +578,48 @@ class _UpdateHandler(_Handler):
         self.record(addr, v, lp)
         return v
 
+    def _sub_argdiffs(self, addr, n_args):
+        """The argdiffs a sub-call receives: an ``Extend`` promise reaches
+        only the sub-call it names (``Extend(k, at=addr)``), or the sole
+        sub-call of a model that makes one; every other sub-call is
+        updated by its full interpreter."""
+        if not self.argdiffs or not isinstance(self.argdiffs[0], Extend):
+            return None
+        ext = self.argdiffs[0]
+        if ext.at is not None:
+            if normalize_address(ext.at) != addr:
+                return None
+        elif not self.sole_subcall:
+            return None
+        return (ext,) + tuple(NoChange() for _ in range(max(n_args - 1, 0)))
+
+    def call_site(self, addr, gf, args):
+        scoped = _scope_path(self.constraints, addr)
+        old_sub = self.old_subs.get(addr)
+        if old_sub is None:
+            # a fresh sub-call: everything it did not constrain was sampled
+            sub, w = gf.generate(self.gen, args, scoped)
+            self.logq = self.logq + (sub.score - w)
+            self.record_sub(addr, sub)
+            return sub.get_retval()
+        sub, logq, disc = gf._update(
+            self.gen, old_sub, args, scoped,
+            argdiffs=self._sub_argdiffs(addr, len(args)))
+        self.logq = self.logq + logq
+        for k, e in disc.entries.items():
+            self.discard[addr + k] = e
+        self.record_sub(addr, sub)
+        return sub.get_retval()
+
 
 class _RegenerateHandler(_Handler):
-    def __init__(self, gen, old_inner, selection: Selection, device):
+    def __init__(self, gen, old_inner, selection: Selection, device,
+                 window=None):
         super().__init__(gen, device)
         self.old_sites = old_inner["sites"]
+        self.old_subs = old_inner["subs"]
         self.selection = selection
+        self.window = window
         self.sel_new = self._zero()
 
     def dist_site(self, addr, dist):
@@ -535,24 +657,56 @@ class _RegenerateHandler(_Handler):
         self.record(addr, v, lp)
         return v
 
+    def call_site(self, addr, gf, args):
+        old_sub = self.old_subs.get(addr)
+        if old_sub is None:
+            # structurally new sub-call: fresh in both the new score and
+            # sel_new, cancelling in the weight
+            sub = gf.simulate(self.gen, args)
+            self.sel_new = self.sel_new + _bsum(sub.score, self.batch)
+            self.record_sub(addr, sub)
+            return sub.get_retval()
+        # the sub-tree's sel_old is not taken from here: the enclosing
+        # _sel_logp pass recomputes it under the OLD upstream values (the
+        # sub-call's own fallback would score it under the new args)
+        sub, sn, _ = gf._regenerate(self.gen, old_sub, args,
+                                    _scope_path(self.selection, addr),
+                                    window=self.window, need_sel_old=False)
+        self.sel_new = self.sel_new + sn
+        self.record_sub(addr, sub)
+        return sub.get_retval()
+
 
 class _SelLogpHandler(_Handler):
     """Re-execute a body FORCING the old trace's stored values, accumulating
     the selection-masked old log-probs (regenerate's ``sel_old`` term) and
-    the total old score. Never samples."""
+    the total old score. Never samples from the caller's generator."""
 
-    def __init__(self, old_inner, selection: Selection, device):
+    def __init__(self, old_inner, selection: Selection, device, window=None):
         super().__init__(None, device)
         self.old_sites = old_inner["sites"]
+        self.old_subs = old_inner["subs"]
         self.selection = selection
+        self.window = window
         self.sel_old = self._zero()
+        self._dummy = None
+
+    def _dummy_gen(self):
+        """A fixed local generator for the placeholder values of sites the
+        old trace lacks: the caller's generator is never consumed here."""
+        if self._dummy is None:
+            self._dummy = torch.Generator(device=self.device).manual_seed(0)
+        return self._dummy
 
     def dist_site(self, addr, dist):
         old = self.old_sites.get(addr)
         if old is None:
-            raise NotImplementedError(
-                f"site {addr!r} is absent from the old trace; structurally "
-                "new sites are not ported yet")
+            # structurally new site (absent from the old trace): it adds
+            # nothing to the old score or sel_old; a placeholder value lets
+            # the body run on
+            if self.batch is None:
+                return dist.sample(self._dummy_gen())
+            return dist.sample_batched(self._dummy_gen(), self.batch)
         v = old.value
         mo = _mask_to(old.mask, v.shape)
         if mo is False:
@@ -564,6 +718,18 @@ class _SelLogpHandler(_Handler):
         if m is not False:
             self.sel_old = self.sel_old + _masked_sum(lp, m, self.batch)
         return v
+
+    def call_site(self, addr, gf, args):
+        old_sub = self.old_subs.get(addr)
+        if old_sub is None:
+            # structurally new sub-call: no contribution (see dist_site)
+            return gf.simulate(self._dummy_gen(), args).get_retval()
+        retval, so, sc = gf._sel_logp(old_sub, args,
+                                      _scope_path(self.selection, addr),
+                                      window=self.window)
+        self.sel_old = self.sel_old + so
+        self.score = self.score + sc
+        return retval
 
 
 def _scope_path(sel, path):
@@ -652,14 +818,17 @@ class DynamicGenFn(GenFn):
 
     def _update(self, gen, tr: Trace, new_args, constraints: ChoiceMap,
                 argdiffs=None):
-        h = _UpdateHandler(gen, tr.inner, constraints, _trace_device(tr))
+        h = _UpdateHandler(gen, tr.inner, constraints, _trace_device(tr),
+                           argdiffs=argdiffs,
+                           sole_subcall=len(tr.inner["subs"]) == 1)
         retval = self._run(h, new_args)
         return (self._mk_trace(new_args, retval, h), h.logq,
                 ChoiceMap(h.discard))
 
     def _regenerate(self, gen, tr: Trace, new_args, selection: Selection,
                     window=None, old_args=None, need_sel_old=True):
-        h = _RegenerateHandler(gen, tr.inner, selection, _trace_device(tr))
+        h = _RegenerateHandler(gen, tr.inner, selection, _trace_device(tr),
+                               window=window)
         retval = self._run(h, new_args)
         if not need_sel_old:
             sel_old = torch.zeros((), dtype=torch.float32,
@@ -667,23 +836,38 @@ class DynamicGenFn(GenFn):
         else:
             if old_args is None:
                 old_args = tr.args if tr.args else new_args
-            _, sel_old, _ = self._sel_logp(tr, old_args, selection)
+            _, sel_old, _ = self._sel_logp(tr, old_args, selection,
+                                           window=window)
         return self._mk_trace(new_args, retval, h), h.sel_new, sel_old
 
     def _sel_logp(self, tr: Trace, args, selection: Selection, window=None):
-        h = _SelLogpHandler(tr.inner, selection, _trace_device(tr))
+        h = _SelLogpHandler(tr.inner, selection, _trace_device(tr),
+                            window=window)
         retval = self._run(h, args)
         return retval, h.sel_old, h.score
 
     # -- structure --------------------------------------------------------
     def trace_choices(self, tr: Trace) -> ChoiceMap:
-        return ChoiceMap(dict(tr.inner["sites"]))
+        out: Dict[Tuple, Entry] = dict(tr.inner["sites"])
+        for addr, sub in tr.inner["subs"].items():
+            for k, e in sub.get_choices().entries.items():
+                out[addr + k] = e
+        return ChoiceMap(out)
 
     def mask_trace(self, tr: Trace, m) -> Trace:
         sites = {a: Entry(e.value, _and_masks(e.mask, m))
                  for a, e in tr.inner["sites"].items()}
+        subs = {a: s.gen_fn.mask_trace(s, m)
+                for a, s in tr.inner["subs"].items()}
         return Trace(tr.gen_fn, tr.args, tr.retval, tr.score,
-                     {"sites": sites, "subs": {}})
+                     {"sites": sites, "subs": subs})
+
+    def trace_choice_axes(self, tr: Trace, axis: int = 0):
+        out = {a: axis for a in tr.inner["sites"]}
+        for addr, sub in tr.inner["subs"].items():
+            for k, ax in sub.gen_fn.trace_choice_axes(sub, axis).items():
+                out[addr + k] = ax
+        return out
 
 
 def gen(fn: Callable) -> DynamicGenFn:
@@ -704,6 +888,10 @@ def generate(gf: GenFn, gen, args, constraints: ChoiceMap = EMPTY):
     return gf.generate(gen, args, constraints)
 
 
+def propose(gf: GenFn, gen, args):
+    return gf.propose(gen, args)
+
+
 def assess(gf: GenFn, args, choices: ChoiceMap):
     return gf.assess(args, choices)
 
@@ -716,3 +904,23 @@ def regenerate(gen, tr: Trace, new_args, argdiffs, selection: Selection,
                window: int | None = None):
     return tr.gen_fn.regenerate(gen, tr, new_args, argdiffs, selection,
                                 window=window)
+
+
+def get_choices(tr: Trace):
+    return tr.get_choices()
+
+
+def get_args(tr: Trace):
+    return tr.get_args()
+
+
+def get_retval(tr: Trace):
+    return tr.get_retval()
+
+
+def get_score(tr: Trace):
+    return tr.get_score()
+
+
+def get_gen_fn(tr: Trace):
+    return tr.get_gen_fn()

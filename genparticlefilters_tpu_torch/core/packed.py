@@ -27,7 +27,7 @@ from .tree import tree_flatten, tree_unflatten, flatten_up_to
 
 __all__ = ["StepStorage", "StorageLayout", "LeafSpec", "make_storage",
            "unpack_tree", "read_step", "write_steps", "zeros_column",
-           "pack_column"]
+           "pack_column", "fits_layout"]
 
 _KIND_MAT = 0
 _KIND_EXTRA = 1
@@ -171,31 +171,36 @@ def _rows_from_column(v, s: LeafSpec, n, device):
     return x.reshape(s.width, n)
 
 
-def unpack_tree(st: StepStorage):
+def _unpack_leaf(st: StepStorage, s: LeafSpec, m3):
+    T, n = st.layout.T, st.n
+    if s.kind == _KIND_EXTRA:
+        return st.extras[s.off]
+    if s.kind == _KIND_ZERO:
+        x = torch.zeros((T,) + s.tail + (n,), dtype=s.dtype,
+                        device=None if st.mat is None else st.mat.device)
+        return x if s.pax == x.dim() - 1 else torch.movedim(x, -1, s.pax)
+    x = m3[:, s.off:s.off + s.width].reshape((T,) + s.tail + (n,))
+    if s.pax != x.dim() - 1:
+        x = torch.movedim(x, -1, s.pax)
+    return _from_i32(x, s.dtype)
+
+
+def unpack_tree(st: StepStorage, part=None):
     """Materialize the full logical stacked tree (cold paths: choicemaps,
-    statistics)."""
+    statistics), or with ``part`` only the subtree under that key of its
+    top-level dict (an Unfold's ``"retval"`` carries)."""
     lo = st.layout
-    T, R = lo.T, lo.R
-    n = st.n
-    m3 = None if st.mat is None else st.mat.reshape(T, R, -1)
-    device = st.mat.device if st.mat is not None else None
-    out = []
-    for s in lo.specs:
-        if s.kind == _KIND_EXTRA:
-            out.append(st.extras[s.off])
-        elif s.kind == _KIND_ZERO:
-            x = torch.zeros((T,) + s.tail + (n,), dtype=s.dtype,
-                            device=device)
-            if s.pax != x.dim() - 1:
-                x = torch.movedim(x, -1, s.pax)
-            out.append(x)
-        else:
-            rows = m3[:, s.off:s.off + s.width]
-            x = rows.reshape((T,) + s.tail + (n,))
-            if s.pax != x.dim() - 1:
-                x = torch.movedim(x, -1, s.pax)
-            out.append(_from_i32(x, s.dtype))
-    return tree_unflatten(lo.treedef, out)
+    m3 = None if st.mat is None else st.mat.reshape(lo.T, lo.R, -1)
+    if part is None:
+        return tree_unflatten(lo.treedef,
+                              [_unpack_leaf(st, s, m3) for s in lo.specs])
+    td = lo.treedef
+    i = td.aux.index(part)
+    lo_i = sum(c.n_leaves for c in td.children[:i])
+    child = td.children[i]
+    return tree_unflatten(child, [
+        _unpack_leaf(st, s, m3)
+        for s in lo.specs[lo_i:lo_i + child.n_leaves]])
 
 
 def read_step(st: StepStorage, t: int):
@@ -254,6 +259,21 @@ def pack_column(st: StepStorage, col_tree):
     if not parts:
         return None, extra_cols
     return torch.cat(parts, dim=0), extra_cols
+
+
+def fits_layout(st: StepStorage, cols) -> bool:
+    """Whether per-step column trees can be written into ``st``'s layout:
+    False when a value with a particle axis would land in a leaf the
+    layout stores shared across particles (the writer then rebuilds the
+    layout, as the JAX package's full scans derive it from their
+    outputs)."""
+    lo = st.layout
+    for col in cols:
+        for v, s in zip(flatten_up_to(lo.treedef, col), lo.specs):
+            if s.kind == _KIND_EXTRA and s.pax is None and (
+                    torch.as_tensor(v).dim() > st.extras[s.off].dim() - 1):
+                return False
+    return True
 
 
 def write_steps(st: StepStorage, t0: int, cols) -> StepStorage:

@@ -43,6 +43,20 @@ in sorted address order)::
     site lik [N] f32 (the factor's zeros), site x [N] f32,
     log_weights [N] f32, log_ml_est f32, parents [N] i32
 
+For the line model of tests/fixtures.py (a ``@gen`` trace whose
+``inner["subs"]`` holds the Unfold called at ``"line"``; its sites, then
+its sub-calls)::
+
+    args n,                              # the model's shared args
+    retval slope [N] i32, score [N] f32,
+    site slope [N] i32,
+    sub-call args n, x0 [N] f32, slope [N] f32,   # per particle at a
+    sub-call score [N] f32,                       # sub-call position
+    carry x [N] f32,
+    mat [3T, N] i32,                     # retval x, site outlier, site y
+    t,                                   # active length
+    log_weights [N] f32, log_ml_est f32, parents [N] i32
+
 ``SVParams`` and the tempered constants hold no learned parameters either.
 
 float32 leaves cross bit for bit and bool leaves as bool. The port's own
@@ -57,6 +71,7 @@ import torch
 
 from .core.tree import tree_flatten, tree_unflatten
 from .smc.initialize import pf_initialize
+from .utils.device import entry_device
 
 __all__ = ["state_from_numpy", "state_to_numpy"]
 
@@ -70,10 +85,7 @@ def state_from_numpy(model, arrays, model_args, observations,
     the state was initialized with: they fix which sites are stored shared,
     hence the storage layout."""
     arrays = list(arrays)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("state_from_numpy: no CUDA card; pass "
-                           "device='cpu' to build the state on the CPU")
+    device = entry_device(device, "state_from_numpy")
     n = int(np.shape(arrays[-3])[0])   # log_weights [N]
     gen = torch.Generator(device=device).manual_seed(0)
     template = pf_initialize(gen, model, model_args, observations, n)

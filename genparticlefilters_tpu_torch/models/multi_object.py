@@ -22,6 +22,7 @@ import torch
 from ..core import gen, trace, normal, uniform_discrete, Unfold, ChoiceMap, \
     Entry, batched_interpretation
 from ..smc.algorithms import run_particle_filter
+from ..utils.device import entry_device
 
 __all__ = ["MOTParams", "make_mot_model", "mot_obs_at_t", "mot_obs_dense",
            "synthesize_mot_data", "mot_particle_filter",
@@ -36,8 +37,11 @@ class MOTParams(NamedTuple):
     s0: float = 2.0  # initial spread
 
 
-def _x0(p: MOTParams, device=None):
-    return torch.zeros((p.n_objects, 2), dtype=torch.float32, device=device)
+def _x0(p: MOTParams, device="cuda"):
+    """The ``[K, 2]`` initial state on ``device``: the card unless the
+    caller asks for the CPU; with no card, the default raises."""
+    return torch.zeros((p.n_objects, 2), dtype=torch.float32,
+                       device=entry_device(device, "_x0"))
 
 
 def make_mot_model(t_max: int, p: MOTParams) -> Unfold:

@@ -21,6 +21,7 @@ from ..core import (gen, trace, bernoulli, normal, Unfold, ChoiceMap, Entry,
                     Selection, Extend, NoChange, batched_interpretation)
 from ..smc import (pf_initialize, pf_update, pf_resample, pf_rejuvenate,
                    effective_sample_size, mh)
+from ..utils.device import entry_device
 from ..utils.spans import span as _span
 
 __all__ = ["make_object_motion", "init_state", "synthesize_data",
@@ -44,7 +45,11 @@ def make_object_motion(t_max: int) -> Unfold:
     return Unfold(motion_step, t_max)
 
 
-def init_state(device=None):
+def init_state(device="cuda"):
+    """The initial state ``(y = 0, moving = False)`` on ``device``: the card
+    unless the caller asks for the CPU (``device="cpu"``); with no card,
+    the default raises."""
+    device = entry_device(device, "init_state")
     return (torch.zeros((), dtype=torch.float32, device=device),
             torch.zeros((), dtype=torch.bool, device=device))
 

@@ -385,19 +385,16 @@ def pf_introduce(gen, state, observations: ChoiceMap, n_particles: int,
                  ) -> ParticleFilterState:
     """Append ``n_particles`` fresh constrained particles (one batched
     ``generate`` of a ``batch_safe`` model); any nonzero LML estimate is
-    folded into the existing weights first. Custom proposals are not
-    ported yet."""
-    if proposal is not None:
-        raise NotImplementedError(
-            "pf_introduce with a custom proposal is not ported yet (it "
-            "comes with the proposal slices)")
-    del proposal_args
+    folded into the existing weights first. With ``proposal``, each fresh
+    particle's choices are proposed, merged over the observations and
+    generated, weighted model − proposal."""
     model = model if model is not None else state.traces.gen_fn
     if model_args is None:
         model_args = state.traces.args  # shared across particles
     lw = state.log_weights + state.log_ml_est
     fresh = pf_initialize(gen, model, model_args, observations,
-                          int(n_particles))
+                          int(n_particles), proposal=proposal,
+                          proposal_args=proposal_args)
     n_total = state.n_particles + int(n_particles)
     dev = lw.device
     return ParticleFilterState(

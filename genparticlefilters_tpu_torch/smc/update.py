@@ -10,15 +10,17 @@ dispatcher covers the JAX package's forms:
   :class:`UpdatingTraceTranslator` (Del Moral SMC, or SMCP³ with a
   transform);
 - ``pf_update(gen, state, translator=...)``: any translator;
-- the default proposal with ``strata=``: a stratified update (default
-  layout interleaved), each weight + log(n_strata).
+- any of the above with ``strata=``: a stratified update (default layout
+  interleaved), each weight + log(n_strata).
 
 Works on full states and on :class:`ParticleFilterSubState` views. The
-per-particle path (models or proposals that are not ``batch_safe``) and
-strata combined with a translator wait for slice 9.
+per-particle path (models or proposals that are not ``batch_safe``)
+waits for slice 9.
 """
 
 from __future__ import annotations
+
+import copy
 
 from ..core.choicemap import ChoiceMap, EMPTY
 from ..core.gfi import GenFn, batched_interpretation
@@ -61,6 +63,20 @@ def _translator_batch_safe(model_gf, translator) -> bool:
     return all(q is None or getattr(q, "batch_safe", False) for q in qs)
 
 
+def _stratified_translator(gen, translator, strata, n, layout):
+    """``(translator, log n_strata)``: a copy of ``translator`` whose new
+    observations also hold each particle's stratum (the observations win
+    where both constrain an address)."""
+    if not isinstance(translator, (ExtendingTraceTranslator,
+                                   UpdatingTraceTranslator)):
+        raise NotImplementedError(
+            "strata combine with extending and updating translators only")
+    per_particle, log_nk = _per_particle_strata(gen, strata, n, layout)
+    out = copy.copy(translator)
+    out.new_observations = per_particle.merge(translator.new_observations)
+    return out, log_nk
+
+
 def pf_update(gen, state, new_args=None, argdiffs=None,
               observations: ChoiceMap = EMPTY,
               proposal: GenFn | None = None, proposal_args=None,
@@ -86,10 +102,6 @@ def pf_update(gen, state, new_args=None, argdiffs=None,
             transform=transform)
 
     if translator is not None:
-        if strata is not None:
-            raise NotImplementedError(
-                "strata with a translator run per particle, which waits for "
-                "slice 9")
         if not _translator_batch_safe(traces.gen_fn, translator):
             raise NotImplementedError(
                 "only batch_safe models and translators are ported (batched "
@@ -101,8 +113,13 @@ def pf_update(gen, state, new_args=None, argdiffs=None,
                 and prev_observations is not EMPTY):
             tkw["prev_observations"] = prev_observations
         with batched_interpretation(n):
+            log_nk = None
+            if strata is not None:
+                translator, log_nk = _stratified_translator(
+                    gen, translator, strata, n, layout)
             new_traces, ws = translator(gen, traces, **tkw)
-        return scatter(new_traces, log_weights + ws)
+        lw = log_weights + ws
+        return scatter(new_traces, lw if log_nk is None else lw + log_nk)
 
     if new_args is None:
         raise ValueError("pf_update requires new_args (or a translator)")

@@ -31,17 +31,19 @@ def test_every_module_imports():
     for name in ("ops.fused_gather", "ops.gather", "smc.resize",
                  "models.multi_object", "parallel", "parallel.distributed",
                  "smc.translate", "utils.stratification",
-                 "models.stochastic_volatility", "models.tempered"):
+                 "models.stochastic_volatility", "models.tempered",
+                 "utils.device"):
         assert f"genparticlefilters_tpu_torch.{name}" in names
     for name in names:
         importlib.import_module(name)
 
 
 def test_new_modules_import_without_jax_or_triton():
-    """ops/gather, smc/resize, smc/translate, utils/stratification, the
-    multi-object, stochastic-volatility and tempered models and parallel
-    import in a fresh interpreter where jax and triton cannot be
-    imported."""
+    """ops/gather, smc/resize, smc/translate, smc/update,
+    utils/stratification, utils/device, core/gfi and core/combinators
+    (with MapCombinator), interop, the multi-object, stochastic-volatility
+    and tempered models and parallel import in a fresh interpreter where
+    jax and triton cannot be imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -57,6 +59,12 @@ def test_new_modules_import_without_jax_or_triton():
         "import genparticlefilters_tpu_torch.smc.translate\n"
         "import genparticlefilters_tpu_torch.utils.stratification\n"
         "import genparticlefilters_tpu_torch.parallel\n"
+        "import genparticlefilters_tpu_torch.core.combinators\n"
+        "import genparticlefilters_tpu_torch.core.gfi\n"
+        "import genparticlefilters_tpu_torch.smc.update\n"
+        "import genparticlefilters_tpu_torch.interop\n"
+        "import genparticlefilters_tpu_torch.utils.device\n"
+        "from genparticlefilters_tpu_torch import MapCombinator, propose\n"
         "assert not any(m.split('.')[0] in ('jax', 'triton')\n"
         "               for m in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

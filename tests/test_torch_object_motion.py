@@ -64,7 +64,7 @@ def _start(seed=1):
     jst = jg.pf_initialize(jr.key(seed), jom.make_object_motion(T),
                            (1, jom.init_state()), jom.obs_dense(y_obs), N)
     tmodel = tom.make_object_motion(T)
-    tx0 = tom.init_state()
+    tx0 = tom.init_state("cpu")
     tobs = tom.obs_dense(torch.from_numpy(np.array(y_obs)))
     tst = state_from_numpy(tmodel, _leaves(jst), (1, tx0), tobs,
                            device="cpu")

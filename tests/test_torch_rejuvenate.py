@@ -241,7 +241,7 @@ def test_check_observations():
 
 def _om_state():
     y_obs, _ = tom.synthesize_data(torch.Generator().manual_seed(42), 6, 3)
-    model, x0, obs = tom.make_object_motion(6), tom.init_state(), \
+    model, x0, obs = tom.make_object_motion(6), tom.init_state("cpu"), \
         tom.obs_dense(y_obs)
     gen = torch.Generator().manual_seed(5)
     st = tg.pf_initialize(gen, model, (1, x0), obs, N)
@@ -263,7 +263,7 @@ VERBS = {
             gen, s, (torch.tensor(0.9),), (tg.UnknownChange(),))),
     "update, Extend on an Unfold": (
         lambda: _om_state()[0], lambda gen, s: tg.pf_update(
-            gen, s, (5, tom.init_state()), (tg.Extend(1), tg.NoChange()),
+            gen, s, (5, tom.init_state("cpu")), (tg.Extend(1), tg.NoChange()),
             tom.obs_dense(tom.synthesize_data(
                 torch.Generator().manual_seed(42), 6, 3)[0]), check=False)),
     "rejuvenate move, windowed mh": (

@@ -258,8 +258,8 @@ def _om_state(n=100, observed=True, seed=0):
     y, _ = tom.synthesize_data(torch.Generator().manual_seed(42), T, 2)
     obs = tom.obs_dense(y) if observed else tg.ChoiceMap({})
     return tg.pf_initialize(torch.Generator().manual_seed(seed),
-                            tom.make_object_motion(T), (4, tom.init_state()),
-                            obs, n)
+                            tom.make_object_motion(T),
+                            (4, tom.init_state("cpu")), obs, n)
 
 
 def _same(a, b):

@@ -75,7 +75,7 @@ def _om_pair(seed=1, n=N):
                            (4, jom.init_state()),
                            jom.obs_dense(jnp.asarray(y)), n)
     tst = state_from_numpy(tom.make_object_motion(6), _leaves(jst),
-                           (4, tom.init_state()),
+                           (4, tom.init_state("cpu")),
                            tom.obs_dense(torch.from_numpy(y)), device="cpu")
     return jst, tst
 
@@ -267,9 +267,18 @@ def test_introduce_folds_lml():
         traces=tree_take(out.traces, torch.arange(N)),
         parents=torch.arange(N, dtype=torch.int32)))
     assert torch.isfinite(out.log_weights).all()
-    with pytest.raises(NotImplementedError):
-        tg.pf_introduce(None, st, obs, 4, proposal=tmot.make_mot_model(
-            T, tmot.MOTParams()))
+
+    # a custom proposal (here one that proposes no choice) folds the same
+    @tg.gen
+    def nothing():
+        return None
+    nothing.batch_safe = True
+    out = tg.pf_introduce(torch.Generator().manual_seed(2), st, obs, 4,
+                          proposal=nothing)
+    assert out.n_particles == N + 4
+    np.testing.assert_allclose(out.log_weights[:N].numpy(), lml_before,
+                               atol=1e-4)
+    assert torch.isfinite(out.log_weights).all()
 
 
 def test_resize_on_object_motion_and_dispatch():

@@ -28,7 +28,7 @@ def states():
     tst = state_from_numpy(
         tom.make_object_motion(T),
         [np.array(x) for x in jax.tree_util.tree_flatten(jst)[0]],
-        (4, tom.init_state()), tom.obs_dense(torch.from_numpy(
+        (4, tom.init_state("cpu")), tom.obs_dense(torch.from_numpy(
             np.array(y_obs))), device="cpu")
     return jst, tst
 

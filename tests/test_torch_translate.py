@@ -12,7 +12,7 @@ translate.py) and pf_update's translator dispatch.
 - The round-trip check passes a true inverse and raises on a broken one;
   the discard check raises.
 - The batched translator's state has the leaf shapes and dtypes of a
-  state made by ``pf_initialize``; strata with a translator and a
+  state made by ``pf_initialize``; strata with a general translator and a
   translator on a model that is not batch-safe raise.
 """
 
@@ -356,8 +356,11 @@ def test_translator_paths_that_wait_raise():
                                     transform=tg.TraceTransform(
                                         _shift(tg, torch)))
     strata = tg.choiceproduct(("eps", [0.1, -0.1]))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tg.pf_update(torch.Generator(), st, translator=tr, strata=strata)
+    # strata reach a translator through its new observations, which a
+    # general translator does not have
+    gtr = tg.GeneralTraceTranslator(model, (torch.tensor(0.5),))
+    with pytest.raises(NotImplementedError, match="extending and updating"):
+        tg.pf_update(torch.Generator(), st, translator=gtr, strata=strata)
     unsafe = tg.gen(fwd.fn)
     tr2 = tg.UpdatingTraceTranslator(p_new_args=(torch.tensor(0.5),),
                                      q_forward=unsafe, q_backward=bwd)

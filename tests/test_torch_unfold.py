@@ -73,7 +73,7 @@ def _generate_both(t_active, seed):
     tmodel = tom.make_object_motion(T)
     with tg.batched_interpretation(N):
         ttr, tw = tmodel.generate(torch.Generator().manual_seed(0),
-                                  (t_active, tom.init_state()), tcm)
+                                  (t_active, tom.init_state("cpu")), tcm)
     return jtr, jw, ttr, tw, tmodel
 
 
@@ -96,7 +96,7 @@ def test_update_extend_constrained_matches_jax():
     before = tmodel.steps_run
     with tg.batched_interpretation(N):
         ttr2, tw, _, disc = ttr.gen_fn.update(
-            torch.Generator().manual_seed(1), ttr, (3, tom.init_state()),
+            torch.Generator().manual_seed(1), ttr, (3, tom.init_state("cpu")),
             (tg.Extend(1), tg.NoChange()), tcm)
     # the O(1) extension ran exactly the one new step, not all T
     assert tmodel.steps_run - before == 1
@@ -109,21 +109,43 @@ def test_update_extend_constrained_matches_jax():
 
 
 def test_update_without_extend_is_not_ported():
-    _, _, ttr, _, _ = _generate_both(2, seed=13)
+    """Without Extend the update is the full re-scan: with every site
+    constrained it equals the JAX package's on the active rows, the carry,
+    the score and the weight; a broken Extend promise still raises."""
+    jtr, _, ttr, _, tmodel = _generate_both(2, seed=13)
+    jcm, tcm = _cms(*_values(14))
+    with jg.core.gfi.batched_interpretation(N):
+        jtr2, jw, _, _ = jtr.gen_fn.update(
+            jr.key(1), jtr, (3, jom.init_state()),
+            (jg.UnknownChange(), jg.NoChange()), jcm)
+    before = tmodel.steps_run
     with tg.batched_interpretation(N):
-        with pytest.raises(NotImplementedError):
-            ttr.gen_fn.update(torch.Generator(), ttr, (3, tom.init_state()),
-                              (tg.UnknownChange(), tg.NoChange()),
-                              tg.EMPTY)
+        ttr2, tw, _, disc = ttr.gen_fn.update(
+            torch.Generator(), ttr, (3, tom.init_state("cpu")),
+            (tg.UnknownChange(), tg.NoChange()), tcm)
+    assert tmodel.steps_run - before == 3
+    rows = 3 * ttr2.inner["store"].layout.R
+    np.testing.assert_array_equal(ttr2.inner["store"].mat[:rows].numpy(),
+                                  np.asarray(jtr2.inner["store"].mat)[:rows])
+    for tl, jl in zip(ttr2.inner["carry"], jtr2.inner["carry"]):
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_allclose(ttr2.score.numpy(), np.asarray(jtr2.score),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-5, rtol=0)
+    # the overwritten old y of steps 0 and 1 are discarded, step 2 was new
+    e = disc.resolve(("y",))
+    assert e.mask[:2].all() and not e.mask[2:].any()
+    with tg.batched_interpretation(N):
         with pytest.raises(ValueError):
-            ttr.gen_fn.update(torch.Generator(), ttr, (4, tom.init_state()),
+            ttr.gen_fn.update(torch.Generator(), ttr,
+                              (4, tom.init_state("cpu")),
                               (tg.Extend(1), tg.NoChange()), tg.EMPTY)
 
 
 def test_pf_update_takes_the_extend_path():
     y_obs = torch.linspace(0.0, 1.0, T)
     model = tom.make_object_motion(T)
-    x0 = tom.init_state()
+    x0 = tom.init_state("cpu")
     obs = tom.obs_dense(y_obs)
     gen = torch.Generator().manual_seed(5)
     st = tg.pf_initialize(gen, model, (1, x0), obs, 64)
@@ -164,3 +186,37 @@ def test_regenerate_window_equals_delta_accepted_everywhere():
     # rejected everywhere: the old trace, bit for bit
     assert torch.equal(kept.inner["store"].mat, ttr.inner["store"].mat)
     assert torch.equal(kept.score, ttr.score)
+
+
+def test_full_regenerate_of_a_shared_site_relays_the_store():
+    """The full re-scan regenerate (window=None) of y_obs, which the
+    dense observation stores shared, at one step: the new values carry the
+    particle axis, so the store's layout is rebuilt — y_obs moves into
+    ``mat``, as in the layout of the JAX package's full scan. The other
+    choices of the active steps are unchanged and equal JAX's, and both
+    weights are 0 (y_obs has no downstream site)."""
+    jtr, _, ttr, _, tmodel = _generate_both(4, seed=31)
+    steps = np.arange(T) == 2
+    jsel = jg.Selection({("y_obs",): jnp.asarray(steps)})
+    tsel = tg.Selection({("y_obs",): torch.from_numpy(steps)})
+    with jg.core.gfi.batched_interpretation(N):
+        jnew, jw = jg.regenerate(jr.key(2), jtr, (4, jom.init_state()),
+                                 (jg.NoChange(), jg.NoChange()), jsel)
+    with tg.batched_interpretation(N):
+        tnew, tw = tg.regenerate(torch.Generator().manual_seed(2), ttr,
+                                 (4, tom.init_state("cpu")),
+                                 (tg.NoChange(), tg.NoChange()), tsel)
+    np.testing.assert_allclose(tw.numpy(), 0.0, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(jw), 0.0, atol=1e-4)
+    lo, jlo = tnew.inner["store"].layout, jnew.inner["store"].layout
+    assert (lo.R, len(tnew.inner["store"].extras)) == (
+        jlo.R, len(jnew.inner["store"].extras)) == (5, 0)
+    assert ttr.inner["store"].layout.R == 4
+    tc, jc, old = tnew.get_choices(), jnew.get_choices(), ttr.get_choices()
+    for k in ("moving", "y"):
+        np.testing.assert_array_equal(tc[k][:4].numpy(),
+                                      np.asarray(jc[k])[:4])
+    keep = [0, 1, 3]
+    np.testing.assert_array_equal(
+        tc["y_obs"][keep].numpy(),
+        np.broadcast_to(old["y_obs"][keep].numpy()[:, None], (3, N)))
