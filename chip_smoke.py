@@ -80,6 +80,23 @@ non-zero and no result line is printed):
    call site, with no host sync; over 8 seeds the mean LML within 0.05 of
    the conjugate log Z and the posterior mean of mu within
    6·stderr + 0.02;
+4q-4s. the per-particle interpretation (``vmap_gfi``), each with its launch
+   counters reset before and read after, no vmap fallback and at most the
+   ESS checks' host syncs: (q) the object-motion filter with its step body
+   unmarked, N=100K, systematic (G1) and residual (G2 count + G1), against
+   phase 4's posterior gate; (r) the line model unmarked, route B (4o's
+   gate), and the SMCP³ loop of 4m with its proposals unmarked (4m's
+   gate); (s) a model only the per-particle path reads right, mu ~
+   mvnormal_diag(0, I_3), y_i ~ N(mu[0] + mu[1]·x_i + mu[2]·x_i², 1), N=100K,
+   resampled (G1) and moved by MH on mu, 8 seeds against the conjugate log
+   Z and posterior mean; and the batched-layout guard's collision model
+   raising at N=64 and running at N=32;
+   dists: the 19 distributions' log_prob on the card against the CPU and
+   1M draws each against closed-form moments; ckpt: save_state and
+   restore_state of a 4q state, restored leaves and the next pf_update
+   bit-equal; repro: torch.cumsum repeated on one input (the evidence),
+   then routes 4o B and 4c multinomial twice here and once in a fresh
+   process (``--repro-only``), bit-equal;
 5. timing: each kernel against its plain version and, where one PyTorch
    call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
@@ -96,6 +113,11 @@ non-zero and no result line is printed):
    ESS checks: 99 and 49) and G1's launches per run; the weights' cumsum
    in float32 and float64; and the cost of the store copy that each
    windowed SV rejuvenation makes;
+   the headline with the batched-layout guard on and off in turns, and a
+   cold guarded run's host syncs and kernels against an unguarded run's;
+   4q, 4r and 4s per particle beside their batched counterparts in turns
+   (ms/run, kernels, device busy and idle share, boundary copies), one 4q
+   run through utils.profiling.trace_profile;
    Configs 3 and 4 and the cells 4o (both routes) and 4p are timed in
    turns beside the object-motion filter twice: at the start of phase 5
    and after config 5 (there also with the cyclic GC off and after
@@ -109,7 +131,9 @@ non-zero and no result line is printed):
    at the shapes of phase 5.
 
 ``--config34-only`` builds, times configs 3 and 4 beside object motion
-in its own fresh process, and stops there, with no result line.
+in its own fresh process, and stops there, with no result line;
+``--repro-only`` builds, runs 4o B and 4c multinomial once and prints
+their LML bits as JSON (no result line).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, a JSON line lists each kernel with its launches on
@@ -693,6 +717,7 @@ def phase_paths(y_obs, main_state):
     seen.update(_config5_paths())
     seen.update(_config34_paths(y_obs, main_state))
     seen.update(_call_site_paths())
+    seen.update(_per_particle_paths(y_obs))
     return seen
 
 
@@ -705,6 +730,11 @@ def _synced(fn):
         out = fn()
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    fallbacks = [str(w.message)[:160] for w in rec
+                 if "performance drop" in str(w.message)]
+    if fallbacks:
+        raise AssertionError(f"an op ran vmap's per-element fallback: "
+                             f"{fallbacks}")
     return out, [f"{w.filename}:{w.lineno}" for w in rec
                  if "synchroniz" in str(w.message)]
 
@@ -1263,16 +1293,18 @@ def _tm_run(gen, _y, n):
     return run_tempered_smc(gen, n, n_temps=K_TM, rejuv_iters=2)[0]
 
 
-def _smcp3_translator(beta, scaling=False):
+def _smcp3_translator(beta, scaling=False, batch_safe=True):
     """An SMCP³ translator of the tempered model to inverse temperature
     ``beta``: eps ~ N(0, 0.25) forward and backward, x' = x + eps (or
-    x' = x·exp(eps) with its Jacobian, ``scaling``), eps' = −eps."""
+    x' = x·exp(eps) with its Jacobian, ``scaling``), eps' = −eps. With
+    ``batch_safe=False`` the proposals are unmarked: the translator runs
+    per particle (path 4r)."""
     import genparticlefilters_tpu_torch as g
 
     @g.gen
     def fwd(tr):
         g.trace("eps", g.normal(0.0, 0.25))
-    fwd.batch_safe = True
+    fwd.batch_safe = batch_safe
 
     def shift(prev, f):
         eps, x = f[("eps",)], prev[("x",)]
@@ -1287,7 +1319,7 @@ def _smcp3_translator(beta, scaling=False):
         q_backward=fwd, transform=g.TraceTransform(shift, **io))
 
 
-def _smcp3_run(gen, _y, n):
+def _smcp3_run(gen, _y, n, batch_safe=True):
     """tempered_smc's loop with the args-update replaced by an SMCP³
     translator; the ESS-triggered systematic resampling stays."""
     import genparticlefilters_tpu_torch as g
@@ -1305,9 +1337,14 @@ def _smcp3_run(gen, _y, n):
             with span("tm.resample"):
                 st = g.pf_resample(gen, st, "systematic", check=False)
         with span("tm.update"):
-            st = g.pf_update(gen, st, translator=_smcp3_translator(betas[i]),
-                             check=False)
+            st = g.pf_update(gen, st, translator=_smcp3_translator(
+                betas[i], batch_safe=batch_safe), check=False)
     return st
+
+
+def _smcp3_pp_run(gen, _y, n):
+    """(r): the SMCP³ loop with unmarked proposals, per particle."""
+    return _smcp3_run(gen, _y, n, batch_safe=False)
 
 
 def _tm_lml_gate(label, run, seed):
@@ -1464,16 +1501,17 @@ def _assess_check():
           f"score on {s.device}, no host sync, |err| {err:.2e} (limit 1e-5)")
 
 
-def _om_short_state(y_obs):
+def _om_short_state(y_obs, batch_safe=True):
     """The object-motion filter of path 4 stopped one step short of T (the
-    path-4 state has no step left to extend)."""
+    path-4 state has no step left to extend); per particle with
+    ``batch_safe=False``."""
     import genparticlefilters_tpu_torch as g
     from genparticlefilters_tpu_torch.models.object_motion import (
         make_object_motion, init_state, obs_dense)
     gen = _gen(890)
     x0, obs = init_state("cuda"), obs_dense(y_obs)
-    st = g.pf_initialize(gen, make_object_motion(T_MAIN), (1, x0), obs,
-                         N_MAIN)
+    st = g.pf_initialize(gen, make_object_motion(T_MAIN, batch_safe),
+                         (1, x0), obs, N_MAIN)
     for t in range(1, T_MAIN - 1):
         if bool(g.effective_sample_size(st) < 0.5 * N_MAIN):
             st = g.pf_resample(gen, st, "systematic", check=False)
@@ -1636,28 +1674,31 @@ def _line_run(route, model):
     return run
 
 
-def _line_path(route, need, line):
+def _line_path(route, need, line, label="4o"):
     """(o), one route: the counted run (launches, host syncs, step bodies,
     the storage on the card), then the gate over 4 seeds against the exact
     enumeration: mean LML within 6·stderr + 0.05 of log Z and every seed
-    within 0.5; P(slope = s) within 6·stderr + 0.02 for every s."""
+    within 0.5; P(slope = s) within 6·stderr + 0.02 for every s. (r) runs
+    it on an unmarked copy of the model, per particle."""
     import genparticlefilters_tpu_torch as g
     model, unfold, y = line
     post, log_z = _line_exact(y)
     run = _line_run(route, model)
-    before = unfold.steps_run
+    before, maps = unfold.steps_run, _boundary()
     (st, syncs), counts = _path(
-        f"4o line model route {route} N={N_LINE} T={T_LINE}",
+        f"{label} line model route {route} N={N_LINE} T={T_LINE}",
         lambda: _synced(lambda: run(_gen(870), y, N_LINE)), need)
     bodies = unfold.steps_run - before
     if len(syncs) > T_LINE:
-        raise AssertionError(f"4o route {route}: {len(syncs)} host syncs, "
-                             f"more than the {T_LINE} ESS checks: {syncs}")
+        raise AssertionError(f"{label} route {route}: {len(syncs)} host "
+                             f"syncs, more than the {T_LINE} ESS checks: "
+                             f"{syncs}")
     store = st.traces.inner["subs"][("line",)].inner["store"]
-    if (store.mat.device.type != "cuda"
+    if (store.mat.device.type != "cuda" or not store.mat.is_contiguous()
             or tuple(store.mat.shape) != (3 * T_LINE, N_LINE)):
-        raise AssertionError(f"4o: store {tuple(store.mat.shape)} on "
+        raise AssertionError(f"{label}: store {tuple(store.mat.shape)} on "
                              f"{store.mat.device}")
+    maps = _boundary_since(maps)
     lmls, probs = [], []
     for s in range(4):
         st = run(_gen(880 + s), y, N_LINE)
@@ -1670,10 +1711,12 @@ def _line_path(route, need, line):
     p_err = np.abs(probs.mean(0) - post)
     p_lim = 6 * probs.std(0) / 2 + 0.02
     if diff >= lim or far >= 0.5 or np.any(p_err >= p_lim):
-        raise AssertionError(f"4o route {route}: LMLs {lmls} vs log Z "
+        raise AssertionError(f"{label} route {route}: LMLs {lmls} vs log Z "
                              f"{log_z}; P(slope) {probs.mean(0)} vs {post}")
-    print(f"[4o route {route}] one run: {len(syncs)} host syncs (limit "
-          f"{T_LINE}, the ESS checks), {bodies} Unfold step bodies, mat "
+    print(f"[{label} route {route}] one run: {len(syncs)} host syncs (limit "
+          f"{T_LINE}, the ESS checks), {maps['calls']} per-particle maps "
+          f"({maps['copies']} boundary copies, {maps['bytes'] / 1e6:.1f} "
+          f"MB), {bodies} Unfold step bodies, mat "
           f"{tuple(store.mat.shape)} int32 on cuda; 4 seeds: mean LML "
           f"{lmls.mean():.4f} vs exact log Z {log_z:.4f} (|diff| {diff:.4f}, "
           f"limit {lim:.4f}; farthest seed {far:.4f}, limit 0.5); P(slope = "
@@ -1779,6 +1822,410 @@ def _call_site_paths():
     return {"4o A": _line_path("A", (G1,), line),
             "4o B": _line_path("B", (G1, G2), line),
             "4p": _plate_path(_plate_setup())}
+
+
+# ---------------------------------------------------------------------------
+# The per-particle interpretation (paths 4q-4s), the 19 distributions,
+# checkpointing, and the reproducibility of routes 4o B and 4c
+# ---------------------------------------------------------------------------
+
+def _boundary():
+    from genparticlefilters_tpu_torch.core.batching import BOUNDARY
+    return dict(BOUNDARY)
+
+
+def _boundary_since(before):
+    after = _boundary()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _pp_om_run(method, batch_safe=False):
+    """The headline filter with the step body unmarked (per particle:
+    initialize, Extend updates and windowed MH each one vmap_gfi map)."""
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        object_motion_filter)
+    return lambda gen, y, n: object_motion_filter(
+        gen, y, n, T_MAIN, resample_method=method, batch_safe=batch_safe)
+
+
+def _pp_om_path(y_obs):
+    """(q): per particle, systematic (G1) and residual (G2 count + G1):
+    one counted run (launches, host syncs, boundary copies), the batched
+    run from the same seed beside it, then phase 4's posterior gate."""
+    seen = {}
+    for method, need in (("systematic", (G1,)), ("residual", (G1, G2))):
+        run = _pp_om_run(method)
+        label = f"4q object motion per particle {method} N={N_MAIN}"
+        maps = _boundary()
+        (st, syncs), seen[f"4q {method}"] = _path(
+            label, lambda: _synced(lambda: run(_gen(100), y_obs, N_MAIN)),
+            need)
+        maps = _boundary_since(maps)
+        if len(syncs) > MAX_SYNCS:
+            raise AssertionError(f"4q {method}: {len(syncs)} host syncs: "
+                                 f"{syncs}")
+        mat = st.traces.inner["store"].mat
+        if not (mat.device.type == "cuda" and mat.is_contiguous()
+                and tuple(mat.shape) == (5 * T_MAIN, N_MAIN)):
+            raise AssertionError(f"4q: store {tuple(mat.shape)}")
+        ref = _filter(method)(_gen(100), y_obs, N_MAIN)
+        same = torch.equal(st.log_weights, ref.log_weights)
+        print(f"[4q {method}] one run: {len(syncs)} host syncs (limit "
+              f"{MAX_SYNCS}); {maps['calls']} per-particle maps, "
+              f"{maps['copies']} boundary copies ({maps['bytes'] / 1e6:.1f} "
+              f"MB); mat {tuple(mat.shape)} int32 (y_obs per particle, as "
+              f"JAX's vmapped layout); log weights bit-equal to the batched "
+              f"run of the same seed: {same}")
+        _posterior_check(run, y_obs, N_MAIN, f"4q {method}")
+    return seen
+
+
+def _pp_line_smcp3_paths():
+    """(r): the line model unmarked, route B; the SMCP³ loop with its
+    forward and backward proposals unmarked (both per particle)."""
+    import copy
+    model, unfold, y = _line_setup()
+    pp = copy.copy(model)
+    pp.batch_safe = False
+    seen = {"4r line B": _line_path("B", (G1, G2), (pp, unfold, y),
+                                    label="4r per particle")}
+    maps = _boundary()
+    (_, syncs), seen["4r SMCP3"] = _path(
+        f"4r SMCP3 per particle N={N_TM} K={K_TM}",
+        lambda: _synced(lambda: _smcp3_pp_run(_gen(850), None, N_TM)), (G1,))
+    maps = _boundary_since(maps)
+    if len(syncs) > K_TM - 1:
+        raise AssertionError(f"4r SMCP3: {len(syncs)} host syncs: {syncs}")
+    print(f"[4r SMCP3] one run: {len(syncs)} host syncs (limit {K_TM - 1}); "
+          f"{maps['calls']} per-particle maps, {maps['copies']} boundary "
+          f"copies ({maps['bytes'] / 1e6:.1f} MB)")
+    _tm_lml_gate("4r SMCP3 per particle", _smcp3_pp_run, 860)
+    return seen
+
+
+X_QUAD = (-1.0, -0.7, -0.4, -0.1, 0.2, 0.5, 0.8, 1.0)
+Y_QUAD = (0.5, 0.2, -0.1, 0.3, 0.8, 1.0, 1.6, 2.1)
+
+
+def _quad_setup(batch_safe=False):
+    """(s): mu ~ mvnormal_diag(0, I_3), y_i ~ N(mu[0] + mu[1]·x_i +
+    mu[2]·x_i², 1) at 8 fixed x_i, every y_i observed. Unmarked, it reads
+    mu[k] per particle; ``batch_safe=True`` gives the batch-polymorphic
+    rewrite (mu[..., k]), the batched counterpart timed in phase 5.
+    Returns (model, args, observations, log Z, posterior mean of mu),
+    those two exact: y ~ N(0, I + Φ Φᵀ)."""
+    import genparticlefilters_tpu_torch as g
+    xs = torch.tensor(X_QUAD, device="cuda")
+
+    @g.gen
+    def quadratic(xv):
+        mu = g.trace("mu", g.mvnormal_diag(torch.zeros(3, device="cuda"),
+                                           torch.ones(3, device="cuda")))
+        m = [mu[..., k] if batch_safe else mu[k] for k in range(3)]
+        for i in range(len(X_QUAD)):
+            g.trace(("y", i), g.normal(m[0] + m[1] * xv[i]
+                                       + m[2] * xv[i] ** 2, 1.0))
+        return mu
+    quadratic.batch_safe = batch_safe
+    obs = g.choicemap(*[(("y", i), v) for i, v in enumerate(Y_QUAD)])
+    x, y = np.array(X_QUAD), np.array(Y_QUAD)
+    phi = np.stack([np.ones(8), x, x ** 2], 1)
+    cov = np.eye(8) + phi @ phi.T
+    log_z = float(-0.5 * y @ np.linalg.solve(cov, y)
+                  - 0.5 * np.linalg.slogdet(2 * math.pi * cov)[1])
+    post = np.linalg.solve(np.eye(3) + phi.T @ phi, phi.T @ y)
+    return quadratic, (xs,), obs, log_z, post
+
+
+def _quad_run(batch_safe=False):
+    """``run(gen, _, n)``: initialize, systematic resampling (G1), two MH
+    sweeps on mu."""
+    import genparticlefilters_tpu_torch as g
+    model, args, obs, _, _ = _quad_setup(batch_safe)
+
+    def run(gen, _y, n):
+        st = g.pf_initialize(gen, model, args, obs, n)
+        st = g.pf_resample(gen, st, "systematic", check=False)
+        return g.pf_rejuvenate(gen, st, g.mh, (g.select("mu"),), 2)
+    return run
+
+
+def _collide(k):
+    import genparticlefilters_tpu_torch as g
+
+    @g.gen
+    def collide_model(_):
+        base = torch.arange(k, dtype=torch.float32, device="cuda")
+        return g.trace("x", g.normal(base, 1.0))
+    collide_model.batch_safe = True
+    return collide_model
+
+
+def _pp_quad_path():
+    """(s): the positional model per particle at N=100K (no host sync, G1),
+    8 seeds against the conjugate log Z and posterior mean; then the
+    guard's collision model on the card."""
+    import genparticlefilters_tpu_torch as g
+    _, _, _, log_z, post = _quad_setup()
+    run = _quad_run()
+    (st, syncs), counts = _path(f"4s positional model per particle "
+                                f"N={N_MAIN}", lambda: _synced(lambda: run(
+                                    _gen(920), None, N_MAIN)), (G1,))
+    if syncs:
+        raise AssertionError(f"4s: host syncs {syncs}")
+    lmls, means = [], []
+    for s in range(8):
+        st = run(_gen(930 + s), None, N_MAIN)
+        lmls.append(float(g.log_ml_estimate(st)))
+        w = g.get_norm_weights(st).double()
+        means.append((w[:, None] * g.batched_choice(st, "mu").double()
+                      ).sum(0).cpu().numpy())
+    lmls, means = np.array(lmls), np.array(means)
+    lim = 6 * lmls.std(ddof=1) / math.sqrt(8) + 0.05
+    m_lim = 6 * means.std(0, ddof=1) / math.sqrt(8)
+    diff, m_err = abs(lmls.mean() - log_z), np.abs(means.mean(0) - post)
+    if diff >= lim or np.any(m_err >= m_lim):
+        raise AssertionError(f"4s: LMLs {lmls} vs {log_z}; means {means} vs "
+                             f"{post}")
+    print(f"[4s positional model] no host sync; 8 seeds: mean LML "
+          f"{lmls.mean():.4f} vs conjugate log Z {log_z:.4f} (|diff| "
+          f"{diff:.4f}, limit {lim:.4f}); posterior mean of mu "
+          f"{np.round(means.mean(0), 4).tolist()} vs exact "
+          f"{np.round(post, 4).tolist()} (|diff| {np.round(m_err, 4)}, "
+          f"limit 6*stderr {np.round(m_lim, 4)})")
+    st = g.pf_initialize(_gen(1), _collide(64), (0,), g.EMPTY, 32)
+    try:
+        g.pf_initialize(_gen(1), _collide(64), (0,), g.EMPTY, 64)
+    except ValueError as e:
+        if "misread as per-particle" not in str(e):
+            raise
+    else:
+        raise AssertionError("4s guard: the collision at N=64 did not raise")
+    print(f"[4s guard] an event vector of length 64 under a batched "
+          f"interpretation: N=32 runs ({tuple(g.batched_choice(st, 'x').shape)}"
+          f"), N=64 raises 'misread as per-particle'")
+    return counts
+
+
+def _dist_cases():
+    """name -> (args on the card, values to score, (mean, var) per event
+    element of a draw, or the kind of check)."""
+    c = lambda v: torch.tensor(v, device="cuda")  # noqa: E731
+    loc, sd = [0.5, -1.0, 2.0], [0.5, 1.0, 2.0]
+    cov = [[2.0, 0.3, 0.1], [0.3, 1.0, -0.2], [0.1, -0.2, 0.5]]
+    f = lambda *v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    i = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    mvn = torch.linspace(-2, 2, 18).reshape(6, 3)
+    return {
+        "normal": ((0.5, 2.0), f(-1.0, 0.5, 3.0), (0.5, 4.0)),
+        "bernoulli": ((0.3,), torch.tensor([True, False]), (0.3, 0.21)),
+        "uniform_discrete": ((-2, 3), i(-3, -2, 0, 3, 4), (0.5, 35 / 12)),
+        "factor": ((-1.25,), f(0.0), (0.0, 0.0)),
+        "uniform": ((-1.0, 3.0), f(-2.0, -1.0, 0.3, 2.9, 3.5),
+                    (1.0, 16 / 12)),
+        "categorical": ((c([0.2, -1.0, 1.5, 0.0]),), i(0, 1, 2, 3, -1, 4),
+                        "freq"),
+        "labeled_categorical": ((c([3, 7, 11]), c([0.2, 0.5, 0.3])),
+                                i(3, 7, 11, 5), "freq"),
+        "poisson": ((3.5,), i(0, 1, 3, 7, 12, -1), (3.5, 3.5)),
+        "gamma": ((2.5, 1.5), f(0.1, 1.0, 3.7, 9.0, -0.5),
+                  (3.75, 2.5 * 1.5 ** 2)),
+        "beta": ((2.0, 5.0), f(0.05, 0.2, 0.5, 0.9, 1.2),
+                 (2 / 7, 10 / (49 * 8))),
+        "exponential": ((1.7,), f(0.0, 0.3, 2.0, 5.0, -0.1),
+                        (1 / 1.7, 1 / 1.7 ** 2)),
+        "geometric": ((0.3,), i(0, 1, 4, 10, -1), (0.7 / 0.3, 0.7 / 0.09)),
+        "lognormal": ((0.2, 0.5), f(0.3, 1.0, 2.5, 6.0),
+                      (math.exp(0.325),
+                       (math.exp(0.25) - 1) * math.exp(0.65))),
+        "laplace": ((0.5, 1.5), f(-3.0, 0.0, 0.5, 4.0), (0.5, 4.5)),
+        "cauchy": ((1.0, 2.0), f(-10.0, 0.0, 1.0, 3.0), "cauchy"),
+        "student_t": ((5.0, 1.0, 2.0), f(-4.0, 0.0, 1.0, 6.0),
+                      (1.0, 20 / 3)),
+        "mvnormal_diag": ((c(loc), c(sd)), mvn,
+                          (np.array(loc), np.array(sd) ** 2)),
+        "mvnormal": ((c(loc), c(cov)), mvn,
+                     (np.array(loc), np.diag(np.array(cov)))),
+        "delta": ((1.5,), f(1.5, 1.0), (1.5, 0.0)),
+    }
+
+
+N_DRAWS = 1_000_000
+
+
+def _dists_path():
+    """dists: each of the 19 distributions' log_prob on the card against
+    the CPU (rtol 1e-5), and 1M sample_batched draws against the closed
+    form: mean and variance within 6 standard errors (Cauchy: median and
+    interquartile range; the categoricals: frequencies)."""
+    import genparticlefilters_tpu_torch as g
+    gen = _gen(940)
+    worst = 0.0
+    for name, (args, vals, moments) in _dist_cases().items():
+        ctor = getattr(g, name)
+        d = ctor(*args)
+        d_cpu = ctor(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                       for a in args])
+        lp = d.log_prob(vals.to("cuda")).cpu()
+        ref = d_cpu.log_prob(vals)
+        if not (lp.device.type == "cpu" and torch.equal(torch.isinf(lp),
+                                                        torch.isinf(ref))):
+            raise AssertionError(f"dists {name}: support {lp} vs {ref}")
+        fin = torch.isfinite(ref)
+        if not torch.allclose(lp[fin], ref[fin], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"dists {name}: log_prob {lp} vs CPU {ref}")
+        x = d.sample_batched(gen, N_DRAWS)
+        if x.device.type != "cuda" or x.shape[0] != N_DRAWS:
+            raise AssertionError(f"dists {name}: draws {x.shape} "
+                                 f"{x.device}")
+        if moments == "freq":
+            p = (torch.softmax(args[0].double(), 0) if name == "categorical"
+                 else args[1].double())
+            vals_k = (torch.arange(len(p), device="cuda")
+                      if name == "categorical" else args[0])
+            freq = (x[:, None] == vals_k[None, :]).double().mean(0)
+            z = ((freq - p).abs() / torch.sqrt(p * (1 - p) / N_DRAWS)).max()
+        elif moments == "cauchy":
+            q = torch.quantile(x[:2 ** 24].double(), torch.tensor(
+                [0.25, 0.5, 0.75], dtype=torch.float64, device="cuda"))
+            # a quantile's stderr: sqrt(p(1-p)/n) over the density there
+            se = math.sqrt(0.1875 / N_DRAWS) / (1 / (math.pi * 2.0 * 2.0))
+            z = max(abs(float(q[1]) - 1.0), abs(float(q[2] - q[0]) - 4.0)
+                    / 2) / se
+        else:
+            xd = x.double()
+            mean = torch.as_tensor(moments[0], dtype=torch.float64,
+                                   device="cuda")
+            var = torch.as_tensor(moments[1], dtype=torch.float64,
+                                  device="cuda")
+            m, v = xd.mean(0), xd.var(0)
+            if float(var.max()) == 0.0:
+                z = float((m - mean).abs().max() + v.abs().max()) * 1e9
+            else:
+                m4 = ((xd - m) ** 4).mean(0)
+                z = max(float(((m - mean).abs()
+                               / torch.sqrt(var / N_DRAWS)).max()),
+                        float(((v - var).abs()
+                               / torch.sqrt((m4 - v ** 2) / N_DRAWS)).max()))
+        z = float(z)
+        worst = max(worst, z)
+        if not z < 6:
+            raise AssertionError(f"dists {name}: draws {z:.2f} standard "
+                                 f"errors from the closed form")
+    print(f"[dists] 19 distributions: log_prob on the card equal to the CPU's "
+          f"(rtol 1e-5, same support); {N_DRAWS:,} draws each on the card, "
+          f"the farthest moment {worst:.2f} standard errors from the closed "
+          f"form (limit 6)")
+
+
+def _ckpt_path(y_obs):
+    """ckpt: save_state of a 4q state (per particle, one step short of T),
+    restore_state onto a fresh state of the model, then one more pf_update
+    of both from one seed: leaves and next step bit-equal."""
+    import tempfile
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.core.tree import tree_leaves
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        make_object_motion)
+    from genparticlefilters_tpu_torch.utils import save_state, restore_state
+    st, x0, obs = _om_short_state(y_obs, batch_safe=False)
+    like = g.pf_initialize(_gen(1), make_object_motion(T_MAIN, False),
+                           (1, x0), obs, N_MAIN)
+
+    def same(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(
+            (torch.equal(x, y) and x.device == y.device)
+            if isinstance(x, torch.Tensor) else x == y
+            for x, y in zip(la, lb))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.pt")
+        t0 = time.perf_counter()
+        save_state(path, st)
+        t1 = time.perf_counter()
+        restored = restore_state(path, like)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    nxt = [g.pf_update(_gen(7), s, (T_MAIN, x0), (g.Extend(1), g.NoChange()),
+                       obs, check=False) for s in (st, restored)]
+    if not (same(st, restored) and same(*nxt)
+            and restored.traces.inner["t"] == T_MAIN - 1):
+        raise AssertionError("ckpt: restored state or its next step differs")
+    print(f"[ckpt] the N={N_MAIN} per-particle state at t={T_MAIN - 1}: "
+          f"{size / 1e6:.1f} MB saved in {(t1 - t0) * 1e3:.1f} ms, restored "
+          f"onto the card in {(t2 - t1) * 1e3:.1f} ms; every leaf and the "
+          f"next pf_update (same seed) bit-equal")
+
+
+def _repro_runs():
+    """{route: (LML bits, a digest of the log weights)} of one run of 4o B
+    and of 4c's multinomial route, each from its fixed seed."""
+    import hashlib
+    import genparticlefilters_tpu_torch as g
+    model, _, y = _line_setup()
+    out = {}
+    for label, st in (
+            ("4o B", _line_run("B", model)(_gen(870), y, N_LINE)),
+            ("4c multinomial", _filter("multinomial")(_gen(102), _data(),
+                                                       N_MAIN))):
+        out[label] = (float(g.log_ml_estimate(st)).hex(), hashlib.sha256(
+            st.log_weights.cpu().numpy().tobytes()).hexdigest()[:16])
+    return out
+
+
+def _repro_path():
+    """The routes that read other LMLs from one seed in two calls (4o B,
+    4c multinomial): first the evidence — torch.cumsum of one float input
+    on the card, repeated — then each route twice in this process and once
+    in a fresh one, which must agree bit for bit."""
+    from genparticlefilters_tpu_torch.smc.resample import (
+        _sorted_uniforms_cum, _cumw)
+    gen = _gen(990)
+    e = torch.empty(N_MAIN + 1, device="cuda").exponential_(generator=gen)
+    w = torch.rand(N_MAIN, generator=gen, device="cuda")
+    w = w / w.sum()
+    scans = {"cumsum float32 of the spacings": lambda: torch.cumsum(e, 0),
+             "cumsum float64 of the weights": lambda: torch.cumsum(
+                 w, 0, dtype=torch.float64),
+             "fixed-point scan of the spacings (the route now)":
+                 lambda: _sorted_uniforms_cum(None, N_MAIN, "cuda", e),
+             "_cumw (the brackets' float64 scan)": lambda: _cumw(w)}
+    for label, fn in scans.items():
+        first = fn()
+        outs = [fn() for _ in range(49)]
+        distinct = 1 + len({o.cpu().numpy().tobytes() for o in outs
+                            if not torch.equal(o, first)})
+        moved = max(int((o != first).sum()) for o in outs)
+        print(f"[repro] {label}: {distinct} distinct results in 50 calls on "
+              f"one input (at most {moved} of {first.numel()} elements "
+              f"differ from the first call)")
+    a, b = _repro_runs(), _repro_runs()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--repro-only"], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--repro-only failed:\n{proc.stderr[-3000:]}")
+    fresh = {k: tuple(v) for k, v in json.loads(
+        proc.stdout.strip().splitlines()[-1]).items()}
+    if not (a == b == fresh):
+        raise AssertionError(f"repro: run 1 {a}, run 2 {b}, fresh process "
+                             f"{fresh}")
+    print(f"[repro] 4o B and 4c multinomial, each twice in this process and "
+          f"once in a fresh one from the same seeds: LMLs and log weights "
+          f"bit-equal ({ {k: float.fromhex(v[0]) for k, v in a.items()} })")
+
+
+def _per_particle_paths(y_obs):
+    """Paths (q)-(s), dists, ckpt and the reproducibility check; returns
+    the launch counts of each path."""
+    seen = _pp_om_path(y_obs)
+    seen.update(_pp_line_smcp3_paths())
+    seen["4s"] = _pp_quad_path()
+    _dists_path()
+    _ckpt_path(y_obs)
+    _repro_path()
+    return seen
 
 
 def _line_step_bodies(card):
@@ -2136,6 +2583,8 @@ def phase_timing(y_obs, card):
     # configs 3 and 4 beside object motion, first: the same cells are timed
     # again after config 5 (_config34_timing)
     _config34_wall(card, "at the start of phase 5", y_obs)
+    _guard_timing(card, y_obs)
+    _pp_timing(card, y_obs)
     kern_ms = _kernel_timing(N_MAIN, card)
     _kernel_timing(1_000_000, card)
     _skewed_timing(card)
@@ -2173,6 +2622,148 @@ def phase_timing(y_obs, card):
     _config5_timing(card)
     _config34_timing(card, y_obs)
     return kern_ms
+
+
+def _guard_timing(card, y_obs):
+    """The batched-layout guard on the headline (systematic, N=100K): ms
+    per run with the guard on (its cache warm) and off, in turns; a cold
+    guarded run (cache emptied): its host time, synchronizing calls and
+    profiled kernels against an unguarded run's."""
+    from genparticlefilters_tpu_torch import config
+    from genparticlefilters_tpu_torch.core import batching
+    run = _filter("systematic")
+    gen = _gen(950)
+    times = {True: [], False: []}
+    for _ in range(6):
+        for on in (True, False):
+            with config.use_check_batched_layout(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(gen, y_obs, N_MAIN)
+                torch.cuda.synchronize()
+                times[on].append((time.perf_counter() - t0) * 1e3)
+    for on, r in times.items():
+        r = r[1:]
+        print(f"[5 guard] headline systematic N={N_MAIN}, guard "
+              f"{'on (cache warm)' if on else 'off'}: "
+              f"{statistics.median(r):.3f} ms/run (median of 5 after a "
+              f"warm-up, on and off in turns; min {min(r):.3f}, max "
+              f"{max(r):.3f}); card {card}")
+    batching._GUARD_CACHE.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(gen, y_obs, N_MAIN)
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    batching._GUARD_CACHE.clear()
+    total, top = _sync_count(run, y_obs, N_MAIN)
+    if total > MAX_SYNCS:
+        raise AssertionError(f"guard cold: {total} host syncs: {top}")
+    kernels = {}
+    for on in (True, False):
+        batching._GUARD_CACHE.clear()
+        with config.use_check_batched_layout(on):
+            kernels[on] = _profiled_kernels(run, y_obs, N_MAIN)
+    if kernels[True] != kernels[False]:
+        raise AssertionError(f"guard: {kernels[True]} kernels guarded, "
+                             f"{kernels[False]} not")
+    print(f"[5 guard] a cold guarded run (its cache emptied) {cold:.3f} "
+          f"ms; {total} synchronizing calls (limit {MAX_SYNCS}); "
+          f"{kernels[True]} kernels guarded (cold) and {kernels[False]} "
+          f"unguarded; card {card}")
+
+
+def _profiled_kernels(run, y, n):
+    """Device kernels launched in one profiled run."""
+    from torch.profiler import profile, ProfilerActivity
+    gen = torch.Generator(device="cuda").manual_seed(400)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run(gen, y, n)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == cuda and not e.key.startswith(SPANS))
+
+
+def _pp_rows(y_obs):
+    """(label, run, y, n) pairs: each per-particle cell beside its batched
+    counterpart."""
+    line_model, _, y_line = _line_setup()
+    import copy
+    pp_line = copy.copy(line_model)
+    pp_line.batch_safe = False
+    rows = []
+    for m in ("systematic", "residual"):
+        rows.append((f"4q object motion {m} N={N_MAIN}",
+                     _pp_om_run(m), _filter(m), y_obs, N_MAIN))
+    rows.append((f"4r line model route B N={N_LINE}", _line_run("B", pp_line),
+                 _line_run("B", line_model), y_line, N_LINE))
+    rows.append((f"4r SMCP3 N={N_TM} K={K_TM}", _smcp3_pp_run, _smcp3_run,
+                 None, N_TM))
+    rows.append((f"4s positional model N={N_MAIN}", _quad_run(False),
+                 _quad_run(True), None, N_MAIN))
+    return rows
+
+
+def _pp_timing(card, y_obs):
+    """4q, 4r and 4s per particle beside their batched counterparts, in
+    turns at one point of the run: ms per run (median of 5 after a
+    warm-up), profiled kernels, device busy ms and idle share, the
+    boundary copies of one run and their device time; one 4q run profiled
+    through utils.profiling.trace_profile."""
+    import tempfile
+    from genparticlefilters_tpu_torch.utils.profiling import trace_profile
+    rows = _pp_rows(y_obs)
+    gen = _gen(960)
+    times = {(r[0], k): [] for r in rows for k in ("per particle",
+                                                   "batched")}
+    for _ in range(6):
+        for label, pp, bb, yy, n in rows:
+            for kind, run in (("per particle", pp), ("batched", bb)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(gen, yy, n)
+                torch.cuda.synchronize()
+                times[(label, kind)].append((time.perf_counter() - t0) * 1e3)
+    for label, pp, bb, yy, n in rows:
+        meds = {}
+        for kind, run in (("per particle", pp), ("batched", bb)):
+            r = times[(label, kind)][1:]
+            meds[kind] = statistics.median(r)
+            maps = _boundary()
+            run(gen, yy, n)
+            maps = _boundary_since(maps)
+            print(f"[5 per particle] {label}, {kind}: {meds[kind]:.3f} "
+                  f"ms/run (median of 5 after a warm-up, the two in turns; "
+                  f"min {min(r):.3f}, max {max(r):.3f}); {maps['calls']} "
+                  f"maps, {maps['copies']} boundary copies "
+                  f"({maps['bytes'] / 1e6:.1f} MB); card {card}")
+            _profile_filter(run, yy, n, meds[kind] / 1e3, f"{label} {kind}",
+                            card)
+        print(f"[5 per particle] {label}: per particle / batched "
+              f"{meds['per particle'] / meds['batched']:.2f}x; card {card}")
+    x = torch.zeros((N_MAIN, 5 * T_MAIN), dtype=torch.int32, device="cuda")
+    dev, _ = _timed({"boundary copy": lambda: x.t().contiguous()})
+    nbytes = 2 * x.numel() * 4
+    print(f"[5 per particle] one boundary copy of the 4q store "
+          f"([{N_MAIN}, {5 * T_MAIN}] -> [{5 * T_MAIN}, {N_MAIN}] int32, "
+          f"{nbytes / 1e6:.1f} MB read+written): {dev['boundary copy']:.4f} "
+          f"ms device time (bound {nbytes / HBM_BYTES_PER_MS:.4f} ms; 20 "
+          f"queued calls, median of 12); card {card}")
+    with tempfile.TemporaryDirectory() as d:
+        with trace_profile(d) as prof:
+            _pp_om_run("systematic")(gen, y_obs, N_MAIN)
+            torch.cuda.synchronize()
+        size = os.path.getsize(os.path.join(d, "trace.json"))
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda
+            and not e.key.startswith(SPANS)]
+    print(f"[5 per particle] one 4q systematic run through trace_profile: "
+          f"a {size / 1e6:.1f} MB Chrome trace, {sum(e.count for e in kern)}"
+          f" kernels, device busy "
+          f"{sum(e.self_device_time_total for e in kern) / 1e3:.3f} ms; "
+          f"card {card}")
 
 
 def _wall_ms(fn, reps=5):
@@ -2341,7 +2932,22 @@ def main():
                         help="build, then only time configs 3 and 4 beside "
                              "object motion in this fresh process; prints "
                              "no result line")
+    parser.add_argument("--repro-only", action="store_true",
+                        help="build, run routes 4o B and 4c multinomial once "
+                             "from their seeds and print their LML bits as "
+                             "JSON (the fresh process of the repro check); "
+                             "no result line")
     args = parser.parse_args()
+    # an op without a batching rule would run vmap's per-element loop
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    warnings.filterwarnings("error", message=".*performance drop.*")
+    if args.repro_only:
+        if not torch.cuda.is_available():
+            raise RuntimeError("--repro-only needs a CUDA card")
+        from genparticlefilters_tpu_torch.ops.build import load_all
+        load_all()
+        print(json.dumps(_repro_runs()))
+        return
     phase_environment()
     card = _card_line()
     phase_build()

@@ -8,7 +8,11 @@ move-reweight rejuvenation) and multi-object tracking (config 5, with its
 data-association variant) filters and tempered SMC (config 4, by
 args-update or SMCP³ translator), on the batched interpretation (packed
 Unfold storage, windowed rejuvenation, Extend updates); the GFI verbs
-with ``propose``/``assess`` and the ``factor`` distribution; custom and
+with ``propose``/``assess`` and all 19 distributions of the JAX package;
+the per-particle interpretation (``vmap_gfi`` on ``torch.func.vmap``), which
+every model, proposal or translator not marked ``batch_safe`` runs, and
+the batched-layout guard (``config``); checkpointing and profiling
+(``utils``); custom and
 stratified ``pf_initialize``/``pf_update``, the trace translators
 (extending, updating, general, with AD Jacobians) and ``mh`` and
 ``move_reweight`` in every form, on states and sub-state views;
@@ -19,6 +23,7 @@ and shuffling (``parallel``); and the CUDA kernels G1 and G2 (fused
 resampling gathers), G3 (explicit-parents gather) and G4 (merge count).
 """
 
+from . import config  # noqa: F401
 from .core import *  # noqa: F401,F403
 from .smc import *  # noqa: F401,F403
 from .parallel import *  # noqa: F401,F403

@@ -15,8 +15,8 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["Entry", "ChoiceMap", "EMPTY", "Selection", "select",
-           "ALL", "choicemap", "normalize_address"]
+__all__ = ["Address", "Entry", "ChoiceMap", "EMPTY", "Selection", "select",
+           "ALL", "NONE", "choicemap", "normalize_address"]
 
 AddressComponent = Union[str, int]
 Address = Tuple[AddressComponent, ...]
@@ -165,6 +165,15 @@ class ChoiceMap:
             return False
         return torch.any(torch.stack(flags))
 
+    # tree protocol (core/tree.py): entries in the JAX package's key order
+    def tree_flatten(self):
+        keys = tuple(sorted(self.entries, key=repr))
+        return tuple(self.entries[k] for k in keys), keys
+
+    @classmethod
+    def tree_unflatten(cls, keys, children):
+        return cls(dict(zip(keys, children)))
+
     def __repr__(self):
         items = ", ".join(f"{k}: {v!r}" for k, v in self.entries.items())
         return f"ChoiceMap({{{items}}})"
@@ -250,6 +259,21 @@ class Selection:
             return True
         return self.entries.get((), False)
 
+    # tree protocol: static True/False masks are structure, not leaves
+    def tree_flatten(self):
+        keys = tuple(sorted(self.entries, key=repr))
+        vals = [self.entries[k] for k in keys]
+        static = tuple(v if isinstance(v, bool) else None for v in vals)
+        return (tuple(v for v in vals if not isinstance(v, bool)),
+                (keys, static, self.all_))
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        keys, static, all_ = aux
+        it = iter(children)
+        return cls({k: (next(it) if s is None else s)
+                    for k, s in zip(keys, static)}, all_=all_)
+
     def __repr__(self):
         if self.all_:
             return "Selection(ALL)"
@@ -257,6 +281,8 @@ class Selection:
 
 
 ALL = Selection(all_=True)
+#: the empty selection
+NONE = Selection()
 
 
 def select(*addrs) -> Selection:

@@ -1,5 +1,7 @@
-"""Combinators, batched form: ``Unfold`` (state-space scan) and
-``MapCombinator`` (plate).
+"""Combinators: ``Unfold`` (state-space scan) and ``MapCombinator``
+(plate), under a batched interpretation and per particle (inside a
+``vmap_gfi`` map, where the packed storage takes its per-particle form,
+``mat [T*R]``, and every write is out of place).
 
 An ``Unfold(step, max_steps)`` trace holds the step sub-traces stacked
 along a static time axis in packed step storage (core/packed.py,
@@ -29,13 +31,16 @@ particle.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .choicemap import ChoiceMap, Entry, Selection, EMPTY
 from .gfi import (GenFn, Trace, Extend, NoChange, current_batch, _where_lead,
-                  _to_batch, _batch_tree, _assess_device)
+                  _to_batch, _batch_tree, _assess_device, ABSTRACT)
 from .packed import (StepStorage, make_storage, unpack_tree, read_step,
-                     write_steps, zeros_column, pack_column, fits_layout)
+                     write_steps, zeros_column, pack_column, fits_layout,
+                     put_rows)
 from .tree import (tree_leaves, tree_map, tree_flatten, tree_unflatten,
                    flatten_up_to)
 
@@ -87,6 +92,22 @@ def _col_tree(steps_col, state):
     """Per-step logical column: the slimmed step trace + the retval carry
     (they live side by side in the packed storage)."""
     return {"retval": state, "steps": steps_col}
+
+
+def _zeros(b, device):
+    """A float32 accumulator: ``[b]`` under a batched interpretation, 0-d
+    per particle."""
+    return torch.zeros(() if b is None else (b,), dtype=torch.float32,
+                       device=device)
+
+
+def _storage_spec(unfold, stacked, b):
+    """The particle-axis spec of a logical stacked column tree, derived on
+    the per-particle tree when ``b`` is None (see perparticle_specs)."""
+    from .batching import gen_spec, perparticle_specs
+    with perparticle_specs() if b is None else contextlib.nullcontext():
+        return _col_tree(unfold.step.trace_axes(stacked["steps"], 1),
+                         gen_spec(stacked["retval"], 1, b))
 
 
 def _batch_state0(state0, b, device):
@@ -143,7 +164,7 @@ class Unfold(GenFn):
     ``Unfold(step, max_steps)`` is called with args ``(t_active,
     init_state, *params)`` where ``t_active`` is a Python int; the trace
     has static shape ``[max_steps, ...]`` with steps ``t >= t_active``
-    inactive. Batched interpretation only."""
+    inactive. Runs under a batched interpretation and per particle."""
 
     def __init__(self, step: GenFn, max_steps: int):
         self.step = step
@@ -166,14 +187,11 @@ class Unfold(GenFn):
     def _split_args(args):
         return int(args[0]), args[1], tuple(args[2:])
 
-    @staticmethod
-    def _batch():
-        b = current_batch()
-        if b is None:
-            raise NotImplementedError(
-                "Unfold runs under batched_interpretation only; the "
-                "per-particle form is not ported yet")
-        return b
+    def _ran(self, k):
+        """Count ``k`` step bodies run (not while the layout guard runs
+        the program on fake tensors)."""
+        if not ABSTRACT:
+            self.steps_run += k
 
     def _check_length(self, t):
         if not 0 <= t <= self.T:
@@ -322,15 +340,15 @@ class Unfold(GenFn):
             shape = torch.broadcast_shapes(per,
                                            *[tuple(v.shape) for v in vals])
             x = leaf.reshape((self.T,) + (1,) * (len(shape) - len(per))
-                             + per).expand((self.T,) + shape).clone()
+                             + per).expand((self.T,) + shape)
+            rows = [x[t] for t in range(self.T)]
             for j, v in enumerate(vals):
-                x[t0 + j] = v.to(device=x.device, dtype=x.dtype)
-            out.append(x)
+                rows[t0 + j] = v.to(device=x.device,
+                                    dtype=x.dtype).expand(shape)
+            out.append(torch.stack(rows))
         stacked = tree_unflatten(td, out)
-        from .batching import gen_spec
-        spec = _col_tree(self.step.trace_axes(stacked["steps"], 1),
-                         gen_spec(stacked["retval"], 1, b))
-        return make_storage(stacked, spec, self.T)
+        return make_storage(stacked, _storage_spec(self, stacked, b),
+                            self.T, batched=b is not None)
 
     # -- GFI --------------------------------------------------------------
     def _empty_trace(self, gen, args, constraints: ChoiceMap = EMPTY):
@@ -339,7 +357,7 @@ class Unfold(GenFn):
         initial state, so it is the layout the JAX package's full scans
         give: sites fully constrained by dense entries are stored SHARED,
         sites constrained per timestep and carries per particle."""
-        b = self._batch()
+        b = current_batch()
         device = gen.device
         _, state0, params = self._split_args(args)
         dense, by_t = self._densify(constraints)
@@ -349,13 +367,11 @@ class Unfold(GenFn):
         col = _col_tree(_slim_steps(step_tr), step_tr.get_retval())
         stacked = tree_map(
             lambda l: torch.zeros((self.T,) + tuple(l.shape), dtype=l.dtype,
-                                  device=l.device), col)
-        from .batching import gen_spec
-        spec = _col_tree(self.step.trace_axes(stacked["steps"], 1),
-                         gen_spec(stacked["retval"], 1, b))
-        store = make_storage(stacked, spec, self.T)
+                                  device=device), col)
+        store = make_storage(stacked, _storage_spec(self, stacked, b),
+                             self.T, batched=b is not None)
         carry = tree_map(torch.zeros_like, step_tr.get_retval())
-        score = torch.zeros((b,), dtype=torch.float32, device=device)
+        score = _zeros(b, device)
         return Trace(self, (0, state0) + params, None, score,
                      _inner_c(store, 0, carry))
 
@@ -378,17 +394,21 @@ class Unfold(GenFn):
     def assess(self, args, choices: ChoiceMap):
         """``(stacked states, score)`` of the active steps run on
         ``choices``, every address of which must be covered at every
-        active step (a device mask is read to check it)."""
-        b = self._batch()
+        active step (a device mask is read to check it; inside a
+        ``vmap_gfi`` map, when the map returns)."""
+        from .batching import check_later
+        b = current_batch()
         t_active, state0, params = self._split_args(args)
         self._check_length(t_active)
         device = _assess_device(args, choices)
         dense, by_t = self._densify(choices)
         for k, e in dense.entries.items():
-            if e.mask is not True and t_active and not bool(
-                    e.mask[:t_active].reshape(t_active, -1).all()):
-                raise ValueError(f"assess: address {k} missing at some "
-                                 "active timesteps")
+            if e.mask is not True and t_active:
+                def missing(k=k):
+                    raise ValueError(f"assess: address {k} missing at "
+                                     "some active timesteps")
+                check_later(torch.logical_not(
+                    e.mask[:t_active].reshape(t_active, -1).all()), missing)
         for k in {k for sub in by_t.values() for k in sub.entries}:
             if k not in dense.entries and any(
                     k not in by_t.get(t, EMPTY).entries
@@ -396,12 +416,12 @@ class Unfold(GenFn):
                 raise ValueError(f"assess: address {k} missing at some "
                                  "active timesteps")
         state = _batch_state0(state0, b, device)
-        score = torch.zeros((b,), dtype=torch.float32, device=device)
+        score = _zeros(b, device)
         states = [state]
         for t in range(t_active):
             state, s = self.step.assess((t, state) + params,
                                         self._step_cm(dense, by_t, t))
-            self.steps_run += 1
+            self._ran(1)
             score = score + s
             states.append(state)
         return _stack_padded(states[1:] or states, self.T), score
@@ -421,7 +441,7 @@ class Unfold(GenFn):
         its old column (present where ``t < t_old`` and the outer mask
         holds). Discards: the overwritten choices of the new active steps,
         and the choices of the steps a shrinking ``t`` deactivates."""
-        b = self._batch()
+        b = current_batch()
         t_new, state0, params = self._split_args(new_args)
         self._check_length(t_new)
         t_old, om = tr.inner["t"], _outer_mask(tr)
@@ -429,7 +449,7 @@ class Unfold(GenFn):
         device = tr.score.device
         dense, by_t = self._densify(constraints)
         state = _batch_state0(state0, b, device)
-        score = torch.zeros((b,), dtype=torch.float32, device=device)
+        score = _zeros(b, device)
         logq = torch.zeros((), dtype=torch.float32, device=device)
         cols, discs = [], []
         for t in range(t_new):
@@ -439,7 +459,7 @@ class Unfold(GenFn):
             new_step, logq_t, disc_t = self.step._update(
                 gen, old_step, (t, state) + params,
                 self._step_cm(dense, by_t, t))
-            self.steps_run += 1
+            self._ran(1)
             state = new_step.get_retval()
             cols.append(_col_tree(_slim_steps(new_step), state))
             score = score + new_step.score
@@ -454,26 +474,32 @@ class Unfold(GenFn):
         """Per-step discard maps -> dense ``[T]``-leading entries (value
         zeros and mask unset at steps that discarded nothing). Only
         addresses some step discarded appear, so an update that
-        overwrote nothing returns an empty map and nothing is read."""
+        overwrote nothing returns an empty map and nothing is read. The
+        rows are stacked, not written, so per-particle values stack too."""
         keys = []
         for d in discs:
             keys += [k for k in d.entries if k not in keys]
         out = {}
         for k in keys:
-            present = [(t, d.entries[k]) for t, d in enumerate(discs)
-                       if k in d.entries]
-            vals = [torch.as_tensor(e.value).to(device) for _, e in present]
-            vshape = torch.broadcast_shapes(*[tuple(v.shape) for v in vals])
+            present = {t: d.entries[k] for t, d in enumerate(discs)
+                       if k in d.entries}
+            vals = {t: torch.as_tensor(e.value).to(device)
+                    for t, e in present.items()}
+            vshape = torch.broadcast_shapes(
+                *[tuple(v.shape) for v in vals.values()])
             mshape = torch.broadcast_shapes(
-                *[tuple(e.mask.shape) for _, e in present
+                *[tuple(e.mask.shape) for e in present.values()
                   if isinstance(e.mask, torch.Tensor)], ())
-            value = torch.zeros((self.T,) + vshape, dtype=vals[0].dtype,
-                                device=device)
-            mask = torch.zeros((self.T,) + mshape, dtype=torch.bool,
-                               device=device)
-            for (t, e), v in zip(present, vals):
-                value[t] = v.expand(vshape)
-                mask[t] = True if e.mask is True else e.mask.expand(mshape)
+            dtype = next(iter(vals.values())).dtype
+            zero = torch.zeros(vshape, dtype=dtype, device=device)
+            unset = torch.zeros(mshape, dtype=torch.bool, device=device)
+            full = torch.ones(mshape, dtype=torch.bool, device=device)
+            value = torch.stack([vals[t].expand(vshape) if t in vals
+                                 else zero for t in range(self.T)])
+            mask = torch.stack([
+                unset if t not in present else full
+                if present[t].mask is True else present[t].mask.expand(mshape)
+                for t in range(self.T)])
             out[k] = Entry(value, mask)
         return ChoiceMap(out)
 
@@ -495,7 +521,7 @@ class Unfold(GenFn):
                        constraints: ChoiceMap, k: int):
         """O(k) trace extension: run only the k newly activated steps and
         write their rows into a copy of the packed storage."""
-        b = self._batch()
+        b = current_batch()
         t_new, state0, params = self._split_args(new_args)
         t_old = tr.inner["t"]
         if t_new != t_old + k or t_new > self.T:
@@ -519,7 +545,7 @@ class Unfold(GenFn):
             new_step, logq_t, _ = self.step._update(
                 gen, proto, (t, state) + params,
                 self._step_cm(dense, by_t, t))
-            self.steps_run += 1
+            self._ran(1)
             state = new_step.get_retval()
             cols.append(_col_tree(_slim_steps(new_step), state))
             score_add = score_add + new_step.score
@@ -533,7 +559,7 @@ class Unfold(GenFn):
     def _window_start(self, tr: Trace, new_args, k: int):
         """(t_old, store, t_start, new-args state entering the window, old
         state entering it, params, old params)."""
-        b = self._batch()
+        b = current_batch()
         device = tr.score.device
         _, state0, params = self._split_args(new_args)
         t_old = tr.inner["t"]
@@ -574,7 +600,7 @@ class Unfold(GenFn):
             new_step, sn_t, _ = self.step._regenerate(
                 gen, old_step, (t, state) + params, step_sel,
                 need_sel_old=False)
-            self.steps_run += 2
+            self._ran(2)
             state = new_step.get_retval()
             cols.append((t, _slim_steps(new_step), state))
             score_delta = score_delta + (new_step.score - old_score_t)
@@ -612,20 +638,37 @@ class Unfold(GenFn):
         R = store.layout.R
         mat = store.mat
         extras = list(store.extras)
-        if cols:
+        # batched: the accept aligns with the LANE axis of mat [T*R, b],
+        # and rows are written into copies; per particle (a 0-d accept):
+        # written out of place
+        per_particle = mat is not None and not store.batched
+        shared = {s.off for s in store.layout.specs
+                  if s.kind == 1 and s.pax is None}   # _KIND_EXTRA
+        if cols and not per_particle:
             mat = None if mat is None else mat.clone()
             extras = [e.clone() for e in extras]
         for t, col, state in cols:
             cslab, extra_cols = pack_column(store, _col_tree(col, state))
             if cslab is not None:
                 rows = mat[t * R:(t + 1) * R]
-                mat[t * R:(t + 1) * R] = torch.where(accept[None, :], cslab,
-                                                     rows)
-            # extras hold values shared across particles: both sides keep
-            # the same old value under a per-particle accept
+                if per_particle:
+                    mat = put_rows(mat, t * R, torch.where(accept, cslab,
+                                                           rows))
+                else:
+                    mat[t * R:(t + 1) * R] = torch.where(accept[None, :],
+                                                         cslab, rows)
+            # an extra stored shared holds the same kept value on both
+            # sides: it is written unselected (per particle, a select would
+            # give it the particle axis its layout keeps out)
             for i, v in enumerate(extra_cols):
-                if v is not None:
-                    extras[i][t] = _where_lead(accept, v, extras[i][t])
+                if v is None:
+                    continue
+                row = v if i in shared else _where_lead(accept, v,
+                                                        extras[i][t])
+                if per_particle:
+                    extras[i] = put_rows(extras[i], t, row[None])
+                else:
+                    extras[i][t] = row
         new_store = StepStorage(mat, tuple(extras), store.layout)
         score = tr.score + torch.where(accept, delta["score_delta"], 0.0)
         # the window always ends at the last active step: the carry is the
@@ -652,7 +695,7 @@ class Unfold(GenFn):
         """The full re-scan regenerate. ``sel_old`` of each step is
         recomputed under the OLD args (``old_args``, else the stored ones,
         else ``new_args``) and the old carries entering it."""
-        b = self._batch()
+        b = current_batch()
         t_new, state0, params = self._split_args(new_args)
         self._check_length(t_new)
         t_old, om = tr.inner["t"], _outer_mask(tr)
@@ -666,7 +709,7 @@ class Unfold(GenFn):
         old_prev = _batch_state0(old_state0, b, device)
         state = _batch_state0(state0, b, device)
         dsel, sel_by_t = self._densify_selection(selection)
-        score = torch.zeros((b,), dtype=torch.float32, device=device)
+        score = _zeros(b, device)
         sel_new = torch.zeros((), dtype=torch.float32, device=device)
         sel_old = torch.zeros((), dtype=torch.float32, device=device)
         cols = []
@@ -679,7 +722,7 @@ class Unfold(GenFn):
                 self._step_sel(dsel, sel_by_t, t),
                 old_args=(t, old_prev) + old_params,
                 need_sel_old=need_sel_old)
-            self.steps_run += 2 if need_sel_old else 1
+            self._ran(2 if need_sel_old else 1)
             state = new_step.get_retval()
             cols.append(_col_tree(_slim_steps(new_step), state))
             score = score + new_step.score
@@ -702,7 +745,7 @@ class Unfold(GenFn):
         if cols:
             store = self._write_cols(
                 store, cols[0][0], [_col_tree(col, s) for _, col, s in cols],
-                self._batch())
+                current_batch())
             carry = state
         inner = _inner_c(store, tr.inner["t"], carry)
         new_tr = Trace(self, new_args, None, tr.score + score_delta, inner)
@@ -715,7 +758,7 @@ class Unfold(GenFn):
         steps are forced and the score term covers only them."""
         if window is not None and _outer_mask(tr) is True:
             return self._sel_logp_window(tr, args, selection, int(window))
-        b = self._batch()
+        b = current_batch()
         _, state0, params = self._split_args(args)
         t_old, om = tr.inner["t"], _outer_mask(tr)
         store = tr.inner["store"]
@@ -732,7 +775,7 @@ class Unfold(GenFn):
             rv, so, sc = self.step._sel_logp(
                 old_step, (t, state) + params,
                 self._step_sel(dsel, sel_by_t, t))
-            self.steps_run += 1
+            self._ran(1)
             state = _where_state(om, rv, state)
             states.append(state)
             sel_old = sel_old + so
@@ -744,7 +787,7 @@ class Unfold(GenFn):
         """O(k) forced pass over the last k active steps (``args`` are the
         args the trace was produced under). Returns the stored retvals, the
         selected old log-probs and the windowed old score."""
-        b = self._batch()
+        b = current_batch()
         _, state0, params = self._split_args(args)
         t_old = tr.inner["t"]
         store = tr.inner["store"]
@@ -760,7 +803,7 @@ class Unfold(GenFn):
             _, so_t, sc_t = self.step._sel_logp(
                 old_col["steps"], (t, old_state) + params,
                 self._step_sel(dsel, sel_by_t, t))
-            self.steps_run += 1
+            self._ran(1)
             sel_old = sel_old + so_t
             score = score + sc_t
             old_state = old_col["retval"]

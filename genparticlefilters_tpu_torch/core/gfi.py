@@ -260,17 +260,32 @@ def _where_lead(cond, a, b):
     return torch.where(c, a.to(b.dtype), b)
 
 
+def tree_select_shared(a, b) -> bool:
+    """True when two tree leaves are interchangeable for an accept/reject
+    select: the same object, or equal Python values (an unchanged
+    combinator length, a Python int arg). Tensors compare by identity
+    only, so no device value is read. Keeping such leaves unselected
+    preserves their shared layout under a per-particle accept."""
+    if a is b:
+        return True
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return False
+    try:
+        return bool(a == b)
+    except (TypeError, ValueError):
+        return False
+
+
 def select_batched(accept, new, old):
     """``where(accept, new, old)`` over a container, dispatching nested
-    traces to :meth:`GenFn.select_trace` and keeping leaves that are the
-    same object (or equal Python values) on both sides unselected, so they
-    keep their layout. ``accept`` is a device bool: ``[b]`` under a
-    batched interpretation, 0-d per particle."""
+    traces to :meth:`GenFn.select_trace` and keeping leaves shared on both
+    sides (:func:`tree_select_shared`) unselected, so they keep their
+    layout. ``accept`` is a device bool: ``[b]`` under a batched
+    interpretation, 0-d per particle."""
     def one(a, b):
         if isinstance(a, Trace):
             return a.gen_fn.select_trace(accept, a, b)
-        if a is b or not (isinstance(a, torch.Tensor)
-                          or isinstance(b, torch.Tensor)) and a == b:
+        if tree_select_shared(a, b):
             return a
         return _where_lead(accept, a, b)
     return tree_map(one, new, old, is_leaf=lambda x: isinstance(x, Trace))
@@ -282,6 +297,9 @@ def select_batched(accept, new, old):
 
 _HANDLER_STACK = []
 _BATCH_STACK: list = []
+#: non-empty while a program runs on fake tensors for its shapes only
+#: (the batched-layout guard, core/batching.py): work counters skip it
+ABSTRACT: list = []
 
 
 class batched_interpretation:

@@ -13,8 +13,13 @@ and dtypes outside {float32, int32, bool}. Zero-size leaves keep only a
 spec. float32 rows are bit patterns (``view(torch.int32)``), bool rows
 are 0/1.
 
-Only the batched form is ported. Writes are copy-on-write: every writer
-returns a storage with new tensors and leaves its input untouched.
+The same :class:`StorageLayout` describes the batched form (``mat [T*R,
+N]``) and the per-particle form inside a ``vmap_gfi`` map (``mat
+[T*R]``); ``mat.dim()`` says which an instance is in, so mapping the
+particle axis at ``mat`` axis 1 turns one into the other. Writes are
+copy-on-write: every writer returns a storage with new tensors and leaves
+its input untouched; the per-particle form writes out of place (a mapped
+value cannot be written into an unmapped tensor).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from .tree import tree_flatten, tree_unflatten, flatten_up_to
 
 __all__ = ["StepStorage", "StorageLayout", "LeafSpec", "make_storage",
            "unpack_tree", "read_step", "write_steps", "zeros_column",
-           "pack_column", "fits_layout"]
+           "pack_column", "fits_layout", "put_rows"]
 
 _KIND_MAT = 0
 _KIND_EXTRA = 1
@@ -78,13 +83,31 @@ class StepStorage:
                 f"T={self.layout.T}, R={self.layout.R})")
 
     @property
+    def batched(self):
+        """True when ``mat`` carries the particle (minor) axis. A storage
+        with no packed leaf is form-degenerate: both answers hold."""
+        return self.mat is not None and self.mat.dim() == 2
+
+    @property
     def n(self):
-        return None if self.mat is None else self.mat.shape[-1]
+        return self.mat.shape[-1] if self.batched else None
+
+
+def _bitcast(x, dtype):
+    """``x.view(dtype)`` for a same-size dtype, also for a tensor a
+    ``vmap_gfi`` map has mapped: PyTorch before 2.12 has no batching rule
+    for a dtype view, so a mapped tensor is viewed under its mapping and
+    wrapped again at the same level and axis."""
+    F = torch._C._functorch
+    if not F.is_batchedtensor(x):
+        return x.view(dtype)
+    return F._add_batch_dim(_bitcast(F.get_unwrapped(x), dtype),
+                            F.maybe_get_bdim(x), F.maybe_get_level(x))
 
 
 def _to_i32(x, dtype):
     if dtype == torch.float32:
-        return x.contiguous().view(torch.int32)
+        return _bitcast(x.contiguous(), torch.int32)
     if dtype == torch.int32:
         return x
     return x.to(torch.int32)
@@ -92,7 +115,7 @@ def _to_i32(x, dtype):
 
 def _from_i32(x, dtype):
     if dtype == torch.float32:
-        return x.contiguous().view(torch.float32)
+        return _bitcast(x.contiguous(), torch.float32)
     if dtype == torch.bool:
         return x != 0
     return x.to(dtype)
@@ -105,13 +128,16 @@ def _prod(t):
     return p
 
 
-def make_storage(tree, spec, T: int) -> StepStorage:
+def make_storage(tree, spec, T: int, batched: bool = True) -> StepStorage:
     """Build packed storage from the logical stacked tree (leaves
     ``[T, ...]``) and its particle-axis spec tree (int or ``None`` per
     leaf, particle axis counted with the time axis in front). A leaf packs
     iff it has a packable dtype, leading ``T``, a particle axis, and
     non-zero size; ``[T, ...pre, N, ...post]`` moves its particle axis last
-    and becomes ``[T, w, N]`` rows."""
+    and becomes ``[T, w, N]`` rows. ``batched=False`` builds the
+    per-particle form (inside a ``vmap_gfi`` map, where the spec position
+    records where the map inserts the particle axis): ``[T, ...]`` leaves
+    become ``[T, w]`` rows."""
     leaves, treedef = tree_flatten(tree)
     spec_elems = flatten_up_to(treedef, spec)
     specs, parts, extras = [], [], []
@@ -121,33 +147,42 @@ def make_storage(tree, spec, T: int) -> StepStorage:
         pax = ax if isinstance(ax, int) else None
         packable = (leaf.dtype in _PACKABLE and len(shape) >= 1
                     and shape[0] == T and pax is not None
-                    and len(shape) > pax)
+                    and (not batched or len(shape) > pax))
         if not packable:
             specs.append(LeafSpec(_KIND_EXTRA, len(extras), 0, leaf.dtype,
                                   (), pax))
             extras.append(leaf)
             continue
-        tail = shape[1:pax] + shape[pax + 1:]
+        tail = (shape[1:pax] + shape[pax + 1:]) if batched else shape[1:]
         if _prod(shape) == 0:
             specs.append(LeafSpec(_KIND_ZERO, -1, 0, leaf.dtype, tail, pax))
             continue
         x = _to_i32(leaf, leaf.dtype)
-        if pax != len(shape) - 1:
-            x = torch.movedim(x, pax, -1)
-        n = shape[pax]
         w = _prod(tail)
+        if batched:
+            if pax != len(shape) - 1:
+                x = torch.movedim(x, pax, -1)
+            x = x.reshape(T, w, shape[pax])
+        else:
+            x = x.reshape(T, w)
         specs.append(LeafSpec(_KIND_MAT, off, w, leaf.dtype, tail, pax))
         off += w
-        parts.append(x.reshape(T, w, n))
+        parts.append(x)
     R = off
-    mat = (torch.cat(parts, dim=1).reshape(T * R, -1).contiguous()
-           if parts else None)
+    mat = None
+    if parts:
+        cat = torch.cat(parts, dim=1)
+        mat = (cat.reshape(T * R, -1).contiguous() if batched
+               else cat.reshape(T * R))
     return StepStorage(mat, tuple(extras),
                        StorageLayout(treedef, tuple(specs), T, R))
 
 
 def _column_from_rows(rows, s: LeafSpec):
-    """[w, N] slab rows -> the logical per-step column value."""
+    """[w, N] (per particle: [w]) slab rows -> the logical per-step column
+    value."""
+    if rows.dim() == 1:
+        return _from_i32(rows.reshape(s.tail), s.dtype)
     n = rows.shape[-1]
     x = rows.reshape(s.tail + (n,))
     cax = s.pax - 1   # column pax: stacked pax minus the time axis
@@ -157,10 +192,14 @@ def _column_from_rows(rows, s: LeafSpec):
 
 
 def _rows_from_column(v, s: LeafSpec, n, device):
-    """Logical per-step column value -> [w, N] slab rows. Under-shaped
-    values (shared or scalar values written into a per-particle leaf)
-    broadcast in."""
+    """Logical per-step column value -> [w, N] slab rows (``n`` None: the
+    per-particle form's [w]). Under-shaped values (shared or scalar values
+    written into a per-particle leaf) broadcast in."""
     x = torch.as_tensor(v, device=device).to(s.dtype)
+    if n is None:
+        if tuple(x.shape) != s.tail:
+            x = x.expand(s.tail)
+        return _to_i32(x, s.dtype).reshape(s.width)
     cax = s.pax - 1
     full = s.tail[:cax] + (n,) + s.tail[cax:]
     if tuple(x.shape) != full:
@@ -175,6 +214,13 @@ def _unpack_leaf(st: StepStorage, s: LeafSpec, m3):
     T, n = st.layout.T, st.n
     if s.kind == _KIND_EXTRA:
         return st.extras[s.off]
+    if n is None:
+        if s.kind == _KIND_ZERO:
+            return torch.zeros((T,) + s.tail, dtype=s.dtype,
+                               device=None if st.mat is None
+                               else st.mat.device)
+        return _from_i32(m3[:, s.off:s.off + s.width].reshape(
+            (T,) + s.tail), s.dtype)
     if s.kind == _KIND_ZERO:
         x = torch.zeros((T,) + s.tail + (n,), dtype=s.dtype,
                         device=None if st.mat is None else st.mat.device)
@@ -190,7 +236,8 @@ def unpack_tree(st: StepStorage, part=None):
     statistics), or with ``part`` only the subtree under that key of its
     top-level dict (an Unfold's ``"retval"`` carries)."""
     lo = st.layout
-    m3 = None if st.mat is None else st.mat.reshape(lo.T, lo.R, -1)
+    m3 = None if st.mat is None else st.mat.reshape(
+        (lo.T, lo.R) + tuple(st.mat.shape[1:]))
     if part is None:
         return tree_unflatten(lo.treedef,
                               [_unpack_leaf(st, s, m3) for s in lo.specs])
@@ -221,6 +268,8 @@ def read_step(st: StepStorage, t: int):
 
 
 def _zero_column_leaf(s: LeafSpec, n, device):
+    if n is None:
+        return torch.zeros(s.tail, dtype=s.dtype, device=device)
     x = torch.zeros(s.tail + (n,), dtype=s.dtype, device=device)
     cax = s.pax - 1
     if cax != x.dim() - 1:
@@ -268,19 +317,34 @@ def fits_layout(st: StepStorage, cols) -> bool:
     layout, as the JAX package's full scans derive it from their
     outputs)."""
     lo = st.layout
+    mapped = torch._C._functorch.is_batchedtensor
     for col in cols:
         for v, s in zip(flatten_up_to(lo.treedef, col), lo.specs):
-            if s.kind == _KIND_EXTRA and s.pax is None and (
-                    torch.as_tensor(v).dim() > st.extras[s.off].dim() - 1):
+            if s.kind != _KIND_EXTRA or s.pax is not None:
+                continue
+            v, e = torch.as_tensor(v), st.extras[s.off]
+            # per particle, a value that differs across particles is a
+            # mapped tensor of the per-particle shape
+            if v.dim() > e.dim() - 1 or (mapped(v) and not mapped(e)):
                 return False
     return True
+
+
+def put_rows(x, start: int, rows):
+    """``x`` with ``rows`` in place of ``x[start:start + len(rows)]``, out
+    of place: the per-particle form's write, where ``rows`` may be mapped
+    and ``x`` not."""
+    end = start + rows.shape[0]
+    return torch.cat([x[:start], rows.to(x.dtype), x[end:]])
 
 
 def write_steps(st: StepStorage, t0: int, cols) -> StepStorage:
     """Write ``k = len(cols)`` consecutive per-step column trees starting
     at step ``t0``: ONE ``[k*R, N]`` slab write on a copy of ``mat`` plus
-    per-extra row writes on copies of the extras."""
+    per-extra row writes on copies of the extras (per particle: out of
+    place, :func:`put_rows`)."""
     lo = st.layout
+    per_particle = st.mat is not None and not st.batched
     extras = list(st.extras)
     copied = set()
     slabs = []
@@ -291,13 +355,21 @@ def write_steps(st: StepStorage, t0: int, cols) -> StepStorage:
         for i, v in enumerate(extra_cols):
             if v is None:
                 continue
+            v = torch.as_tensor(v, dtype=extras[i].dtype,
+                                device=extras[i].device)
+            if per_particle:
+                extras[i] = put_rows(extras[i], t0 + j, v[None])
+                continue
             if i not in copied:
                 extras[i] = extras[i].clone()
                 copied.add(i)
-            extras[i][t0 + j] = torch.as_tensor(v, dtype=extras[i].dtype,
-                                                device=extras[i].device)
+            extras[i][t0 + j] = v
     mat = st.mat
     if slabs and mat is not None:
-        mat = mat.clone()
-        mat[t0 * lo.R:(t0 + len(slabs)) * lo.R] = torch.cat(slabs, dim=0)
+        if per_particle:
+            mat = put_rows(mat, t0 * lo.R, torch.cat(slabs, dim=0))
+        else:
+            mat = mat.clone()
+            mat[t0 * lo.R:(t0 + len(slabs)) * lo.R] = torch.cat(slabs,
+                                                                dim=0)
     return StepStorage(mat, tuple(extras), lo)

@@ -35,6 +35,17 @@ class TreeDef:
     def __repr__(self):
         return f"TreeDef({self.kind}, leaves={self.n_leaves})"
 
+    # structural equality: two flattenings of trees of one structure are
+    # equal (layouts compare by it, and caches key on it)
+    def _key(self):
+        return (self.kind, self.aux, self.children)
+
+    def __eq__(self, other):
+        return isinstance(other, TreeDef) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
 
 def _node(x, is_leaf):
     """(kind, aux, children) for a container, None for a leaf."""

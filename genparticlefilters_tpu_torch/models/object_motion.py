@@ -28,8 +28,10 @@ __all__ = ["make_object_motion", "init_state", "synthesize_data",
            "obs_dense", "object_motion_filter", "exact_posterior"]
 
 
-def make_object_motion(t_max: int) -> Unfold:
-    """The model with static horizon ``t_max``."""
+def make_object_motion(t_max: int, batch_safe: bool = True) -> Unfold:
+    """The model with static horizon ``t_max``. With ``batch_safe=False``
+    the step body is left unmarked, so every verb runs it per particle
+    (``vmap_gfi``) rather than under one batched interpretation."""
 
     @gen
     def motion_step(t, state):
@@ -41,7 +43,7 @@ def make_object_motion(t_max: int) -> Unfold:
         trace("y_obs", normal(y, 0.25))
         return (y, moving)
 
-    motion_step.batch_safe = True
+    motion_step.batch_safe = batch_safe
     return Unfold(motion_step, t_max)
 
 
@@ -77,16 +79,17 @@ def synthesize_data(gen, t_max: int, switch_t: int):
 
 def object_motion_filter(gen, y_obs, n_particles: int, t_max: int,
                          ess_frac: float = 0.5,
-                         resample_method: str = "residual", device=None):
+                         resample_method: str = "residual", device=None,
+                         batch_safe: bool = True):
     """The README particle filter: resampling + MH rejuvenation when
     ESS < ess_frac·N, then a one-step extension update. Runs on ``device``
     (default: the device of ``gen``), drawing every random number from
-    ``gen``."""
+    ``gen``; ``batch_safe=False`` runs the step body per particle."""
     device = gen.device if device is None else torch.device(device)
     if device.type != gen.device.type:
         raise ValueError(f"generator on {gen.device}, filter on {device}")
     y_obs = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
-    model = make_object_motion(t_max)
+    model = make_object_motion(t_max, batch_safe)
     x0 = init_state(device)
     obs = obs_dense(y_obs)  # static-True mask: shared y_obs storage
     # the om.* spans name the filter's phases in a torch.profiler trace

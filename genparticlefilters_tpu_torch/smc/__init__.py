@@ -18,10 +18,11 @@ from .algorithms import *  # noqa: F401,F403
 from .resize import *  # noqa: F401,F403
 from .translate import *  # noqa: F401,F403
 from ..utils.weights import lognorm, softmax, safe_softmax  # noqa: F401
+from ..utils.stratification import choiceproduct  # noqa: F401
 
 __all__ = (
     _state.__all__ + _initialize.__all__ + _update.__all__
     + _resample.__all__ + _rejuvenate.__all__ + _statistics.__all__
     + _algorithms.__all__ + _resize.__all__ + _translate.__all__
-    + ["lognorm", "softmax", "safe_softmax"]
+    + ["lognorm", "softmax", "safe_softmax", "choiceproduct"]
 )

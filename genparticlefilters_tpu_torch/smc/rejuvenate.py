@@ -11,15 +11,19 @@
 
 Kernels are ``(gen, trace, ...) -> (trace, aux)`` functions; the
 accept/reject branch is a per-particle select, and ``n_iters`` sweeps run
-under ONE batched interpretation. With ``return_stats=True`` the
-kernels' aux comes back as tensors: the accept flags or relative weights
-``[N, n_iters]``. Both verbs work on full states and on sub-state views.
+under ONE batched interpretation for a ``batch_safe`` model, else per
+particle (one ``vmap_gfi`` map over all sweeps). With
+``return_stats=True`` the kernels' aux comes back as tensors: the accept
+flags or relative weights ``[N, n_iters]``. Both verbs work on full
+states and on sub-state views; ``check``/``observations`` are honored
+once, at state level, after the sweeps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.batching import check_later, vmap_gfi
 from ..core.choicemap import ChoiceMap, Selection, EMPTY, value_on
 from ..core.gfi import GenFn, NoChange, Trace, batched_interpretation
 from .update import _block
@@ -35,9 +39,10 @@ def _nochange(args):
 def check_observations(choices: ChoiceMap, observations: ChoiceMap,
                        atol=1e-5):
     """Raise ``ValueError`` unless every observed choice is preserved
-    where it is present (a read of the device). A stored value with more
-    axes than the observation (a particle axis) is compared against the
-    observation broadcast over them."""
+    where it is present (a read of the device, deferred to the end of a
+    ``vmap_gfi`` map). A stored value with more axes than the observation
+    (a particle axis) is compared against the observation broadcast over
+    them."""
     for k, e in observations.entries.items():
         stored = choices.resolve(k)
         if stored is None:
@@ -50,8 +55,10 @@ def check_observations(choices: ChoiceMap, observations: ChoiceMap,
         bad = (got - want).abs() > atol
         if stored.mask is not True:
             bad = bad & stored.mask_array()
-        if bool(torch.any(bad)):
+
+        def modified(k=k):
             raise ValueError(f"observation at {k} was modified")
+        check_later(torch.any(bad), modified)
 
 
 def _uniform_accept(gen, w):
@@ -153,20 +160,28 @@ def move_reweight(gen, trace: Trace, selection_or_proposal,
 # ---------------------------------------------------------------------------
 
 def _sweeps(gen, traces, kern, kern_args, n_iters, kwargs):
-    """Apply ``kern`` ``n_iters`` times to every particle under ONE batched
-    interpretation. Returns ``(traces, aux sum [N], aux [N, n_iters])``,
-    the aux as float32."""
+    """Apply ``kern`` ``n_iters`` times to every particle: under ONE
+    batched interpretation for a ``batch_safe`` model, else per particle in
+    one ``vmap_gfi`` map. Returns ``(traces, aux sum [N], aux [N,
+    n_iters])``, the aux as float32."""
     n = int(traces.score.shape[0])
-    auxs = []
-    with batched_interpretation(n):
+    batched = getattr(traces.gen_fn, "batch_safe", False)
+
+    def run(tr):
+        auxs = []
         for _ in range(n_iters):
-            traces, aux = kern(gen, traces, *kern_args, **kwargs)
-            auxs.append(torch.as_tensor(aux).to(torch.float32).expand(n))
-    aux_all = torch.stack(auxs, dim=1)
-    aux_sum = auxs[0]
-    for a in auxs[1:]:
-        aux_sum = aux_sum + a
-    return traces, aux_sum, aux_all
+            tr, aux = kern(gen, tr, *kern_args, **kwargs)
+            aux = torch.as_tensor(aux).to(torch.float32)
+            auxs.append(aux.expand(n) if batched else aux)
+        aux_sum = auxs[0]
+        for a in auxs[1:]:
+            aux_sum = aux_sum + a
+        return tr, aux_sum, torch.stack(auxs, dim=-1)
+
+    if not batched:
+        return vmap_gfi(run, traces)
+    with batched_interpretation(n):
+        return run(traces)
 
 
 def _pop_check(kwargs):
@@ -180,19 +195,11 @@ def _verify_observations(check, observations, traces):
         check_observations(traces.get_choices(), observations)
 
 
-def _require_batch_safe(traces):
-    if not getattr(traces.gen_fn, "batch_safe", False):
-        raise NotImplementedError(
-            "only batch_safe models are ported (batched interpretation); "
-            "the per-particle path waits for slice 9")
-
-
 def pf_move_accept(gen, state, kern=mh, kern_args=(), n_iters: int = 1,
                    return_stats: bool = False, **kwargs):
     """MCMC rejuvenation; weights untouched. With ``return_stats``, also
     ``{"accepts": [N, n_iters], "accept_rate": mean}``."""
     traces, log_weights, _, scatter = _block(state)
-    _require_batch_safe(traces)
     check, observations = _pop_check(kwargs)
     new_traces, acc_sum, acc_all = _sweeps(gen, traces, kern, kern_args,
                                            n_iters, kwargs)
@@ -210,7 +217,6 @@ def pf_move_reweight(gen, state, kern=move_reweight, kern_args=(),
     the particle weights. With ``return_stats``, also ``{"rel_weights":
     [N, n_iters]}``."""
     traces, log_weights, _, scatter = _block(state)
-    _require_batch_safe(traces)
     check, observations = _pop_check(kwargs)
     new_traces, w_sum, w_all = _sweeps(gen, traces, kern, kern_args, n_iters,
                                        kwargs)

@@ -135,7 +135,16 @@ def _sorted_uniforms_cum(gen, n: int, device, e=None):
     e = _draws(e, (n + 1,), device, lambda: torch.empty(
         (n + 1,), dtype=torch.float32, device=device).exponential_(
             generator=gen))
-    return _cummax(torch.cumsum(e, 0))
+    if e.device.type == "cpu":
+        return _cummax(torch.cumsum(e, 0))
+    # on the card torch.cumsum of floats reassociates differently from run
+    # to run (PyTorch lists it as nondeterministic), which moved sorted
+    # uniforms across brackets between runs of one seed; summed exactly
+    # in 2^-32 fixed point (an int64 scan is exact in any order) and
+    # rounded once, the spacings' sums are the same every run, and
+    # monotone
+    q = (e * 4294967296.0).to(torch.int64)
+    return torch.cumsum(q, 0).to(torch.float32) * 2.0 ** -32
 
 
 def stratified_F(gen, weights, n_out: int | None = None, v=None):

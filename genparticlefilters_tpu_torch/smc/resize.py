@@ -384,8 +384,9 @@ def pf_introduce(gen, state, observations: ChoiceMap, n_particles: int,
                  proposal: GenFn | None = None, proposal_args=None
                  ) -> ParticleFilterState:
     """Append ``n_particles`` fresh constrained particles (one batched
-    ``generate`` of a ``batch_safe`` model); any nonzero LML estimate is
-    folded into the existing weights first. With ``proposal``, each fresh
+    ``generate`` of a ``batch_safe`` model, else a per-particle one, as
+    ``pf_initialize`` runs them); any nonzero LML estimate is folded into
+    the existing weights first. With ``proposal``, each fresh
     particle's choices are proposed, merged over the observations and
     generated, weighted model − proposal."""
     model = model if model is not None else state.traces.gen_fn

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.batching import tree_take, tree_put
+from ..core.batching import tree_take, tree_put, moveaxis_to_front
 from ..core.gfi import Trace
 from ..utils.weights import (lognorm, softmax, ess_from_log_weights,
                              logsumexp, log_float32)
@@ -22,7 +22,7 @@ __all__ = ["ParticleFilterState", "ParticleFilterSubState",
            "get_log_weights", "get_parents", "get_log_norm_weights",
            "get_norm_weights", "effective_sample_size", "get_ess",
            "log_ml_estimate", "get_lml_est", "sample_unweighted_traces",
-           "num_particles", "batched_choice"]
+           "num_particles", "batched_choice", "batched_choice_entry"]
 
 
 class ParticleFilterState:
@@ -183,6 +183,38 @@ def sample_unweighted_traces(gen, state, n_samples: int) -> Trace:
     idx = multinomial_parents(gen, get_norm_weights(state), n_samples)
     perm = torch.randperm(n_samples, generator=gen, device=idx.device)
     return tree_take(state.traces, idx[perm])
+
+
+def batched_choice_entry(choices, addr, entry_axes=None, n_particles=None):
+    """``(value, mask)`` of ``addr`` in a choicemap. With ``entry_axes``
+    (``{stored address: particle axis}``, as ``trace_choice_axes`` gives
+    it) both come back PARTICLE-FIRST whatever the storage layout, int
+    components of ``addr`` indexing the combinator axes after the particle
+    axis; an entry that cannot hold the particle axis there (rank too
+    small, or the wrong extent when ``n_particles`` is given) is shared and
+    indexed directly. Without it the map is per-particle: plain
+    combinator-axis indexing. The mask is ``True`` or a bool tensor."""
+    loc = choices.locate(addr)
+    if loc is None:
+        raise KeyError(addr)
+    key, idxs, e = loc
+    v = torch.as_tensor(e.value)
+    m = e.mask if e.mask is True else e.mask_array()
+    if entry_axes is None:
+        if idxs:
+            v = v[idxs]
+            m = m if m is True else m[idxs]
+        return v, m
+    ax = entry_axes.get(key, 0)
+
+    def pick(x):
+        batched = x.dim() > ax and (n_particles is None
+                                    or x.shape[ax] == n_particles)
+        if batched:
+            x = moveaxis_to_front(x, ax)
+            return x[(slice(None),) + idxs] if idxs else x
+        return x[idxs] if idxs else x
+    return pick(v), (True if m is True else pick(m))
 
 
 def batched_choice(state, addr):

@@ -16,9 +16,11 @@ batched interpretation the transform runs once on ``[N]``-leading values
 and the Jacobian is taken as N per-particle blocks by
 ``torch.func.vmap(jacfwd(...))``.
 
-Translators take a ``torch.Generator`` and draw from it in order. The
-round-trip and discard checks raise eagerly and read the device only when
-asked to check.
+Translators take a ``torch.Generator`` and draw from it in order. Run
+per particle (inside a ``vmap_gfi`` map), the transform's ``jacfwd`` nests
+inside the map. The round-trip and discard checks read the device only
+when asked to check, and inside a map when it returns
+(:func:`~..core.batching.check_later`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..core.batching import check_later
 from ..core.choicemap import (ChoiceMap, Entry, EMPTY, normalize_address,
                               value_on)
 from ..core.gfi import (GenFn, Trace, UnknownChange, batched_interpretation,
@@ -237,18 +240,31 @@ def _choices_close(a: ChoiceMap, b: ChoiceMap, atol=1e-4):
     return torch.stack(oks).all() if oks else True
 
 
+def _raiser(message):
+    def on_set():
+        raise ValueError(message)
+    return on_set
+
+
+def _mismatch(close):
+    """``not close`` for a device bool or a Python bool."""
+    return (torch.logical_not(close) if isinstance(close, torch.Tensor)
+            else not close)
+
+
 def check_round_trip(prev_trace: Trace, prev_trace_rt: Trace,
                      fwd_trace: Trace = None, fwd_trace_rt: Trace = None):
     """Bijection check: the inverse translator must rebuild the input
     traces within tolerance; raises ``ValueError`` otherwise (a read of the
-    device)."""
-    if not bool(_choices_close(prev_trace.get_choices(),
-                               prev_trace_rt.get_choices())):
-        raise ValueError("round-trip check failed: model trace mismatch")
-    if fwd_trace is not None and fwd_trace_rt is not None and not bool(
-            _choices_close(fwd_trace.get_choices(),
-                           fwd_trace_rt.get_choices())):
-        raise ValueError("round-trip check failed: proposal trace mismatch")
+    device, deferred to the end of a ``vmap_gfi`` map)."""
+    check_later(_mismatch(_choices_close(prev_trace.get_choices(),
+                                         prev_trace_rt.get_choices())),
+                _raiser("round-trip check failed: model trace mismatch"))
+    if fwd_trace is not None and fwd_trace_rt is not None:
+        check_later(_mismatch(_choices_close(fwd_trace.get_choices(),
+                                             fwd_trace_rt.get_choices())),
+                    _raiser("round-trip check failed: proposal trace "
+                            "mismatch"))
 
 
 def _check_no_discard(discard: ChoiceMap, check: bool):
@@ -257,10 +273,9 @@ def _check_no_discard(discard: ChoiceMap, check: bool):
     device unless ``check`` is set."""
     if not check or discard.is_empty():
         return
-    if bool(discard.total_mask_any()):
-        raise ValueError(
-            "Choices were updated or deleted during pf_update; pass "
-            "check=False to allow replacing previous observations.")
+    check_later(discard.total_mask_any(), _raiser(
+        "Choices were updated or deleted during pf_update; pass "
+        "check=False to allow replacing previous observations."))
 
 
 # ---------------------------------------------------------------------------

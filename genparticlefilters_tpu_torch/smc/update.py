@@ -1,6 +1,5 @@
-"""Particle filter update: propagate every particle one step and reweight,
-under ONE batched interpretation of the whole particle set. One
-dispatcher covers the JAX package's forms:
+"""Particle filter update: propagate every particle one step and reweight.
+One dispatcher covers the JAX package's forms:
 
 - ``pf_update(gen, state, new_args, argdiffs, observations)``: the
   model's default proposal;
@@ -13,18 +12,24 @@ dispatcher covers the JAX package's forms:
 - any of the above with ``strata=``: a stratified update (default layout
   interleaved), each weight + log(n_strata).
 
-Works on full states and on :class:`ParticleFilterSubState` views. The
-per-particle path (models or proposals that are not ``batch_safe``)
-waits for slice 9.
+Works on full states and on :class:`ParticleFilterSubState` views. When
+the model and every generative function a translator invokes are marked
+``batch_safe``, the update runs under ONE batched interpretation of the
+whole particle set (held against the per-particle shapes by the
+``config.check_batched_layout`` guard); otherwise, and whenever strata
+meet a translator, it runs per particle
+(:func:`~..core.batching.vmap_gfi`).
 """
 
 from __future__ import annotations
 
 import copy
 
+from .. import config as _config
+from ..core.batching import vmap_gfi, check_batched_layout, layout_key
 from ..core.choicemap import ChoiceMap, EMPTY
 from ..core.gfi import GenFn, batched_interpretation
-from .initialize import _per_particle_strata
+from .initialize import _per_particle_strata, _batch_safe
 from .state import ParticleFilterSubState
 from .translate import (ExtendingTraceTranslator, UpdatingTraceTranslator,
                         GeneralTraceTranslator, _check_no_discard)
@@ -49,8 +54,6 @@ def _translator_batch_safe(model_gf, translator) -> bool:
     """A translator runs under ONE batched interpretation when it is one
     of the known classes and the model and every generative function it
     invokes are ``batch_safe``."""
-    if not getattr(model_gf, "batch_safe", False):
-        return False
     if isinstance(translator, ExtendingTraceTranslator):
         qs = (translator.q_forward,)
     elif isinstance(translator, UpdatingTraceTranslator):
@@ -60,21 +63,16 @@ def _translator_batch_safe(model_gf, translator) -> bool:
               translator.new_model)
     else:
         return False
-    return all(q is None or getattr(q, "batch_safe", False) for q in qs)
+    return _batch_safe(model_gf, *qs)
 
 
-def _stratified_translator(gen, translator, strata, n, layout):
-    """``(translator, log n_strata)``: a copy of ``translator`` whose new
-    observations also hold each particle's stratum (the observations win
-    where both constrain an address)."""
-    if not isinstance(translator, (ExtendingTraceTranslator,
-                                   UpdatingTraceTranslator)):
-        raise NotImplementedError(
-            "strata combine with extending and updating translators only")
-    per_particle, log_nk = _per_particle_strata(gen, strata, n, layout)
+def _with_stratum(translator, stratum):
+    """A copy of ``translator`` whose new observations also hold a
+    particle's stratum (the observations win where both constrain an
+    address)."""
     out = copy.copy(translator)
-    out.new_observations = per_particle.merge(translator.new_observations)
-    return out, log_nk
+    out.new_observations = stratum.merge(translator.new_observations)
+    return out
 
 
 def pf_update(gen, state, new_args=None, argdiffs=None,
@@ -101,40 +99,67 @@ def pf_update(gen, state, new_args=None, argdiffs=None,
             q_backward=bwd_proposal, q_backward_args=tuple(bwd_args or ()),
             transform=transform)
 
+    if (strata is not None and translator is not None
+            and not isinstance(translator, (ExtendingTraceTranslator,
+                                            UpdatingTraceTranslator))):
+        raise ValueError(
+            "strata reach a translator through its new observations: they "
+            "combine with extending and updating translators only")
+    per_particle, log_nk = None, None
+    if strata is not None:
+        per_particle, log_nk = _per_particle_strata(gen, strata, n, layout)
+
     if translator is not None:
-        if not _translator_batch_safe(traces.gen_fn, translator):
-            raise NotImplementedError(
-                "only batch_safe models and translators are ported (batched "
-                "interpretation); the per-particle path waits for slice 9")
         tkw = dict(translator_kwargs or {})
         if check is not None:
             tkw["check"] = check
         if (isinstance(translator, UpdatingTraceTranslator)
                 and prev_observations is not EMPTY):
             tkw["prev_observations"] = prev_observations
-        with batched_interpretation(n):
-            log_nk = None
-            if strata is not None:
-                translator, log_nk = _stratified_translator(
-                    gen, translator, strata, n, layout)
-            new_traces, ws = translator(gen, traces, **tkw)
+        if per_particle is None and _translator_batch_safe(traces.gen_fn,
+                                                           translator):
+            with batched_interpretation(n):
+                new_traces, ws = translator(gen, traces, **tkw)
+            if _config.check_batched_layout:
+                check_batched_layout(
+                    new_traces, lambda tr: translator(gen, tr, **tkw)[0], n,
+                    context="pf_update (batched translator)",
+                    eval_args=(traces,),
+                    key=layout_key("translator", translator, traces, tkw,
+                                   n))
+        elif per_particle is None:
+            new_traces, ws = vmap_gfi(
+                lambda tr: translator(gen, tr, **tkw), traces)
+        else:
+            new_traces, ws = vmap_gfi(
+                lambda tr, stratum: _with_stratum(translator, stratum)(
+                    gen, tr, **tkw), traces, per_particle)
         lw = log_weights + ws
         return scatter(new_traces, lw if log_nk is None else lw + log_nk)
 
     if new_args is None:
         raise ValueError("pf_update requires new_args (or a translator)")
-    if not getattr(traces.gen_fn, "batch_safe", False):
-        raise NotImplementedError(
-            "only batch_safe models are ported (batched interpretation); "
-            "the per-particle path waits for slice 9")
-    with batched_interpretation(n):
-        constraints, log_nk = observations, None
-        if strata is not None:
-            per_particle, log_nk = _per_particle_strata(gen, strata, n,
-                                                        layout)
-            constraints = per_particle.merge(observations)
-        new_traces, ws, _, discard = traces.gen_fn.update(
-            gen, traces, new_args, argdiffs, constraints)
+
+    def one(tr, stratum=None):
+        constraints = (observations if stratum is None
+                       else stratum.merge(observations))
+        new_tr, w, _, discard = tr.gen_fn.update(gen, tr, new_args, argdiffs,
+                                                 constraints)
+        return new_tr, w, discard
+
+    if getattr(traces.gen_fn, "batch_safe", False):
+        with batched_interpretation(n):
+            new_traces, ws, discard = one(traces, per_particle)
+        if _config.check_batched_layout and per_particle is None:
+            check_batched_layout(
+                new_traces, lambda tr: one(tr)[0], n,
+                context="pf_update (batched)", eval_args=(traces,),
+                key=layout_key("update", traces, new_args, argdiffs,
+                               observations, n))
+    elif per_particle is None:
+        new_traces, ws, discard = vmap_gfi(one, traces)
+    else:
+        new_traces, ws, discard = vmap_gfi(one, traces, per_particle)
     _check_no_discard(discard, True if check is None else check)
     lw = log_weights + ws
     return scatter(new_traces, lw if log_nk is None else lw + log_nk)

@@ -69,12 +69,16 @@ def ess_from_log_weights(log_weights):
 def apply_check(invalid, check):
     """The ``check`` policy for invalid weights: ``True`` raises,
     ``"warn"`` prints a warning, ``False`` is silent (and reads nothing
-    from the device)."""
+    from the device). Inside a ``vmap_gfi`` map the read waits until the
+    map returns."""
     if check is False:
         return
-    if bool(invalid):
+    from ..core.batching import check_later
+
+    def on_set():
         if check is True:
             raise FloatingPointError("Invalid weights (NaN or all -inf).")
         print("[genparticlefilters_tpu_torch] warning: invalid normalized "
               "weights (NaN or all -inf); renormalized per safe_softmax "
               "policy.")
+    check_later(invalid, on_set)

@@ -124,12 +124,14 @@ def test_chain_parity_resample_and_extend():
         # the per-particle [T, N] constraints have no per-particle reading,
         # so JAX's layout self-check (which replays them per particle) is
         # off for this call
-        with use_check_batched_layout(False):
+        with use_check_batched_layout(False), \
+                tg.config.use_check_batched_layout(False):
             jst = jg.pf_update(jr.key(t), jst, (t + 1, jom.init_state()),
                                (jg.Extend(1), jg.NoChange()), jcm,
                                check=False)
-        tst = tg.pf_update(torch.Generator(), tst, (t + 1, tx0),
-                           (tg.Extend(1), tg.NoChange()), tcm, check=False)
+            tst = tg.pf_update(torch.Generator(), tst, (t + 1, tx0),
+                               (tg.Extend(1), tg.NoChange()), tcm,
+                               check=False)
         _assert_states_match(jst, tst)
     np.testing.assert_allclose(float(tg.log_ml_estimate(tst)),
                                float(jg.log_ml_estimate(jst)), atol=1e-4)
@@ -196,12 +198,14 @@ def test_chain_parity_residual_resample_and_extend():
                             ("moving",): tg.Entry(torch.from_numpy(mvf),
                                                   True),
                             ("y",): tg.Entry(torch.from_numpy(yf), True)})
-        with use_check_batched_layout(False):
+        with use_check_batched_layout(False), \
+                tg.config.use_check_batched_layout(False):
             jst = jg.pf_update(jr.key(t), jst, (t + 1, jom.init_state()),
                                (jg.Extend(1), jg.NoChange()), jcm,
                                check=False)
-        tst = tg.pf_update(torch.Generator(), tst, (t + 1, tx0),
-                           (tg.Extend(1), tg.NoChange()), tcm, check=False)
+            tst = tg.pf_update(torch.Generator(), tst, (t + 1, tx0),
+                               (tg.Extend(1), tg.NoChange()), tcm,
+                               check=False)
         _assert_states_match(jst, tst)
 
 

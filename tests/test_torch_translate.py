@@ -359,10 +359,18 @@ def test_translator_paths_that_wait_raise():
     # strata reach a translator through its new observations, which a
     # general translator does not have
     gtr = tg.GeneralTraceTranslator(model, (torch.tensor(0.5),))
-    with pytest.raises(NotImplementedError, match="extending and updating"):
+    with pytest.raises(ValueError, match="extending and updating"):
         tg.pf_update(torch.Generator(), st, translator=gtr, strata=strata)
+    # a forward proposal that is not batch_safe runs the translator per
+    # particle, drawing what the batched translator draws
     unsafe = tg.gen(fwd.fn)
-    tr2 = tg.UpdatingTraceTranslator(p_new_args=(torch.tensor(0.5),),
-                                     q_forward=unsafe, q_backward=bwd)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tg.pf_update(torch.Generator(), st, translator=tr2)
+    outs = []
+    for q in (unsafe, fwd):
+        tr2 = tg.UpdatingTraceTranslator(p_new_args=(torch.tensor(0.5),),
+                                         q_forward=q, q_backward=bwd)
+        outs.append(tg.pf_update(torch.Generator().manual_seed(4), st,
+                                 translator=tr2))
+    np.testing.assert_allclose(outs[0].log_weights.numpy(),
+                               outs[1].log_weights.numpy(), atol=1e-5)
+    for a, b in zip(tree_leaves(outs[0]), tree_leaves(outs[1])):
+        assert (tuple(a.shape), a.dtype) == (tuple(b.shape), b.dtype)
