@@ -97,6 +97,25 @@ non-zero and no result line is printed):
    bit-equal; repro: torch.cumsum repeated on one input (the evidence),
    then routes 4o B and 4c multinomial twice here and once in a fresh
    process (``--repro-only``), bit-equal;
+4t-4v. combinators nested in combinators, linear-Gaussian, N=100K, T=10,
+   each with its launch counters reset before and read after, at most
+   the 9 ESS checks' host syncs and its Unfold step bodies counted, then
+   4 seeds against the exact Kalman log Z (mean within 6·stderr + 0.05,
+   every seed within 0.5): (t) N1, a plate of 8 observations in an Unfold
+   step, Extend(1), systematic (G1), MH on x through the window-2
+   regenerate; (u) N2, a plate of 4 Unfolds, full re-scan updates,
+   residual (G2 count + G1); (v) N3, an Unfold of 3 sub-steps in an
+   Unfold step, Extend(1), systematic (G1), batched and unmarked (per
+   particle through vmap_gfi, no vmap fallback);
+4w. the step of dryrun_multichip (__graft_entry__.py) at full width on a
+   state sharded over a one-rank NCCL mesh (NCCL takes one rank per
+   card; four-rank semantics are held on the CPU by
+   tests/test_torch_mesh.py): object motion N=100K, T=10, four steps of
+   an update, the ESS-triggered blockwise resample + ring rotation +
+   shuffle, MH, the exact global resample and a translator update (G1);
+   every leaf bit-equal to the same steps with mesh=None from the same
+   seed, each blockwise resample without a collective or a
+   torch.distributed call;
 5. timing: each kernel against its plain version and, where one PyTorch
    call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
@@ -115,11 +134,11 @@ non-zero and no result line is printed):
    windowed SV rejuvenation makes;
    the headline with the batched-layout guard on and off in turns, and a
    cold guarded run's host syncs and kernels against an unguarded run's;
-   4q, 4r and 4s per particle beside their batched counterparts in turns
+   4q, 4r, 4s and 4v per particle beside their batched counterparts in turns
    (ms/run, kernels, device busy and idle share, boundary copies), one 4q
    run through utils.profiling.trace_profile;
-   Configs 3 and 4 and the cells 4o (both routes) and 4p are timed in
-   turns beside the object-motion filter twice: at the start of phase 5
+   Configs 3 and 4 and the cells 4o (both routes), 4p, 4t-4v and 4w are
+   timed in turns beside the object-motion filter twice: at the start of phase 5
    and after config 5 (there also with the cyclic GC off and after
    emptying the allocator's cache), each with its kernels per run, device
    busy time and idle share from the profiler, and 4o with the Unfold
@@ -161,6 +180,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed
 
 N_MAIN, T_MAIN, SWITCH = 100_000, 10, 5
 N_SMALL = 100                   # the README's config-1 particle count
@@ -179,8 +199,13 @@ N_STRATA = 100_000              # path 4n
 N_LINE, T_LINE = 100_000, 10    # path 4o: the line model of tests/fixtures.py
 N_PLATE, D_PLATE, Y_PLATE = 100_000, 8, 0.5   # path 4p: mu ~ N(0, 1),
 #                                 x_i ~ N(mu, 1), y_i ~ N(x_i, 0.5) = 0.5
-SPANS = ("om.", "c5.", "sv.", "tm.", "lm.", "mp.")   # profiler span
-#                                 prefixes of the runs
+N_NEST, T_NEST = 100_000, 10    # paths 4t-4v: nested combinators
+A_NEST, Q_NEST, R_NEST = 0.7, 0.6, 0.5   # their AR coefficient, process
+#                                 and observation sd
+K1_NEST, K2_NEST, S3_NEST = 8, 4, 3   # N1's plate, N2's plate, N3's
+#                                 inner sub-steps
+SPANS = ("om.", "c5.", "sv.", "tm.", "lm.", "mp.", "ns.", "mw.")   # profiler
+#                                 span prefixes of the runs
 MAX_SYNCS = 9                   # per object-motion run: the 9 ESS checks
 HBM_BYTES_PER_MS = 3.35e9       # the H100 SXM's 3.35 TB/s
 CSRC = "genparticlefilters_tpu_torch/csrc/"
@@ -718,6 +743,7 @@ def phase_paths(y_obs, main_state):
     seen.update(_config34_paths(y_obs, main_state))
     seen.update(_call_site_paths())
     seen.update(_per_particle_paths(y_obs))
+    seen.update(_nested_paths())
     return seen
 
 
@@ -2228,6 +2254,360 @@ def _per_particle_paths(y_obs):
     return seen
 
 
+# ---------------------------------------------------------------------------
+# Combinators nested in combinators (paths 4t-4v) and the mesh (path 4w)
+# ---------------------------------------------------------------------------
+
+def _nested_models(batch_safe=True):
+    """{shape: (model, the Unfolds whose step bodies it runs)}: N1, a plate
+    in an Unfold step (x_t ~ N(0.7·x_{t−1}, 0.6), then MapCombinator(obs,
+    8) with y_{t,k} ~ N(x_t, 0.5)); N2, a plate of Unfolds
+    (MapCombinator(Unfold(ar1_step, T), 4), four AR(1) series each
+    observed at every step); N3, an Unfold in an Unfold step (3 AR(1)
+    sub-steps per outer step, the last one observed). ``batch_safe=False``
+    leaves every body unmarked (per particle)."""
+    import genparticlefilters_tpu_torch as g
+
+    @g.gen
+    def obs_k(x):
+        g.trace("y", g.normal(x, R_NEST))
+    plate = g.MapCombinator(obs_k, K1_NEST)
+
+    @g.gen
+    def n1_step(t, x):
+        x = g.trace("x", g.normal(A_NEST * x, Q_NEST))
+        g.trace("obs", plate, (x,))
+        return x
+
+    @g.gen
+    def ar1_step(t, x):
+        x = g.trace("x", g.normal(A_NEST * x, Q_NEST))
+        g.trace("y", g.normal(x, R_NEST))
+        return x
+
+    @g.gen
+    def sub_step(t, x):
+        return g.trace("x", g.normal(A_NEST * x, Q_NEST))
+    inner = g.Unfold(sub_step, S3_NEST)
+
+    @g.gen
+    def n3_step(t, x):
+        x = g.trace("sub", inner, (S3_NEST, x))[S3_NEST - 1]
+        g.trace("y", g.normal(x, R_NEST))
+        return x
+    for f in (obs_k, n1_step, ar1_step, sub_step, n3_step):
+        f.batch_safe = batch_safe
+    n1, ar1 = g.Unfold(n1_step, T_NEST), g.Unfold(ar1_step, T_NEST)
+    n3 = g.Unfold(n3_step, T_NEST)
+    return {"N1": (n1, (n1,)), "N2": (g.MapCombinator(ar1, K2_NEST), (ar1,)),
+            "N3": (n3, (n3, inner))}
+
+
+def _nested_data(shape, seed=31):
+    """One trajectory's observations (drawn by numpy, float32 on the card):
+    N1 [T, 8], N2 [4, T], N3 [T]."""
+    rng = np.random.default_rng(seed)
+
+    def ar(n):
+        x, out = 0.0, []
+        for _ in range(n):
+            x = A_NEST * x + Q_NEST * rng.normal()
+            out.append(x)
+        return np.array(out)
+    if shape == "N1":
+        y = ar(T_NEST)[:, None] + R_NEST * rng.normal(size=(T_NEST, K1_NEST))
+    elif shape == "N2":
+        y = (np.stack([ar(T_NEST) for _ in range(K2_NEST)])
+             + R_NEST * rng.normal(size=(K2_NEST, T_NEST)))
+    else:
+        y = (ar(T_NEST * S3_NEST)[S3_NEST - 1::S3_NEST]
+             + R_NEST * rng.normal(size=T_NEST))
+    return torch.from_numpy(y.astype(np.float32)).to("cuda")
+
+
+def _kalman_log_z(y, a=A_NEST, q2=Q_NEST ** 2):
+    """log p(y) of x_t = a·x_{t−1} + N(0, q2) (x_{−1} = 0), each y_{t,k} ~
+    N(x_t, 0.5²), in float64 (sequential scalar updates)."""
+    y = np.asarray(y.cpu(), np.float64).reshape(len(y), -1)
+    m, v, lz = 0.0, 0.0, 0.0
+    for yt in y:
+        m, v = a * m, a * a * v + q2
+        for o in yt:
+            s = v + R_NEST ** 2
+            lz += -0.5 * (o - m) ** 2 / s - 0.5 * math.log(2 * math.pi * s)
+            k = v / s
+            m, v = m + k * (o - m), (1 - k) * v
+    return lz
+
+
+def _nested_log_z(shape, y):
+    """Exact log Z: N1 a Kalman filter over 8 observations per step; N2
+    the sum of four Kalman log Zs; N3 the one-step AR model of coefficient
+    a³ and the summed variance."""
+    if shape == "N1":
+        return _kalman_log_z(y)
+    if shape == "N2":
+        return sum(_kalman_log_z(y[k]) for k in range(K2_NEST))
+    return _kalman_log_z(y, A_NEST ** S3_NEST, Q_NEST ** 2 * sum(
+        A_NEST ** (2 * j) for j in range(S3_NEST)))
+
+
+def _nested_run(shape, model):
+    """The filter of the shape as ``run(gen, y, n)``: N1 Extend(1) updates,
+    systematic resampling when the ESS falls below N/2, then MH on the x of
+    the last two steps through the window-2 regenerate; N2 full re-scan
+    updates (UnknownChange) on the new length, residual resampling; N3
+    Extend(1) updates, systematic resampling."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.utils.spans import span
+    diffs = ((g.UnknownChange(), g.NoChange()) if shape == "N2"
+             else (g.Extend(1), g.NoChange()))
+    method = "residual" if shape == "N2" else "systematic"
+    addr = ("obs", "y") if shape == "N1" else ("y",)
+
+    def run(gen, y, n):
+        obs = g.ChoiceMap({addr: g.Entry(y, True)})
+        x0 = torch.zeros((K2_NEST,) if shape == "N2" else (),
+                         device=gen.device)
+        with span("ns.initialize"):
+            st = g.pf_initialize(gen, model, (1, x0), obs, n)
+        for t in range(1, T_NEST):
+            with span("ns.ess_check"):
+                low = bool(g.effective_sample_size(st) < n / 2)
+            if low:
+                with span("ns.resample"):
+                    st = g.pf_resample(gen, st, method, check=False)
+                if shape == "N1":
+                    with span("ns.rejuvenate"):
+                        st = g.pf_rejuvenate(
+                            gen, st, g.mh,
+                            (g.select((t - 1, "x"), (t - 2, "x")),),
+                            window=2)
+            with span("ns.update"):
+                st = g.pf_update(gen, st, (t + 1, x0), diffs, obs,
+                                 check=False)
+        return st
+    return run
+
+
+def _nested_path(shape, label, need, batch_safe=True):
+    """(t)-(v), or (v) per particle: one counted run (launches, host syncs
+    at most the T-1 ESS checks, Unfold step bodies, vmap fallbacks fail),
+    then 4 seeds against the exact log Z: mean LML within 6·stderr + 0.05,
+    every seed within 0.5."""
+    import genparticlefilters_tpu_torch as g
+    model, unfolds = _nested_models(batch_safe)[shape]
+    run = _nested_run(shape, model)
+    y = _nested_data(shape)
+    log_z = _nested_log_z(shape, y)
+    before = [u.steps_run for u in unfolds]
+    maps = _boundary()
+    (st, syncs), counts = _path(
+        f"{label} {shape} N={N_NEST} T={T_NEST}",
+        lambda: _synced(lambda: run(_gen(1000), y, N_NEST)), need)
+    bodies = [u.steps_run - b for u, b in zip(unfolds, before)]
+    maps = _boundary_since(maps)
+    if len(syncs) > T_NEST - 1:
+        raise AssertionError(f"{label}: {len(syncs)} host syncs, more than "
+                             f"the {T_NEST - 1} ESS checks: {syncs}")
+    from genparticlefilters_tpu_torch.core.tree import tree_leaves
+    leaves = [l for l in tree_leaves(st.traces)
+              if isinstance(l, torch.Tensor)]
+    if any(l.device.type != "cuda" for l in leaves):
+        raise AssertionError(f"{label}: a trace leaf off the card")
+    lmls = np.array([float(g.log_ml_estimate(run(_gen(1010 + s), y, N_NEST)))
+                     for s in range(4)])
+    lim = 6 * lmls.std() / 2 + 0.05
+    diff, far = abs(lmls.mean() - log_z), float(np.abs(lmls - log_z).max())
+    if diff >= lim or far >= 0.5:
+        raise AssertionError(f"{label}: LMLs {lmls} vs exact log Z {log_z}")
+    print(f"[{label} {shape}] one run: {len(syncs)} host syncs (limit "
+          f"{T_NEST - 1}, the ESS checks), Unfold step bodies "
+          f"{' + '.join(map(str, bodies))} (outer{', inner' if shape == 'N3' else ''}), "
+          f"{maps['calls']} per-particle maps ({maps['copies']} boundary "
+          f"copies); 4 seeds: mean LML {lmls.mean():.4f} vs exact log Z "
+          f"{log_z:.4f} (|diff| {diff:.4f}, limit {lim:.4f}; farthest seed "
+          f"{far:.4f}, limit 0.5)")
+    return counts
+
+
+def _mesh_setup():
+    """The one-rank NCCL mesh of path 4w (the backend a multi-card run
+    uses; NCCL takes one rank per card), made once per process."""
+    import socket
+    import torch.distributed as dist
+    import genparticlefilters_tpu_torch as g
+    if not dist.is_initialized():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+    return g.parallel.particle_mesh()
+
+
+def _mesh_run(y_obs, mesh=None):
+    """``dryrun_multichip``'s step (__graft_entry__.py:64-95) at full width
+    as ``run(gen, _, n)``: object motion, T=10, each step an update, the
+    ESS-triggered blockwise resample with a ring rotation and a shuffle,
+    MH on ``moving``, the exact global resample and a translator update
+    (4 steps, two updates each). With ``mesh``, on the sharded state."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        make_object_motion, init_state, obs_dense)
+    from genparticlefilters_tpu_torch.utils.spans import span
+    model = make_object_motion(T_MAIN)
+    kw = {} if mesh is None else {"mesh": mesh}
+
+    @g.gen
+    def flip(tr, t):
+        g.trace((t, "moving"), g.bernoulli(0.5))
+    flip.batch_safe = True
+
+    def run(gen, _y, n, record=None):
+        x0 = init_state("cuda")
+        obs = obs_dense(y_obs)
+        steps = torch.arange(T_MAIN, device="cuda")
+        with span("mw.initialize"):
+            st = g.pf_initialize(gen, model, (1, x0), obs, n)
+            if mesh is not None:
+                st = g.parallel.shard_state(st, mesh)
+        for t in range(1, T_MAIN - 1, 2):
+            with span("mw.update"):
+                st = g.pf_update(gen, st, (t + 1, x0),
+                                 (g.UnknownChange(), g.NoChange()), obs,
+                                 check=False)
+            with span("mw.ess_check"):
+                ess = g.effective_sample_size(st)
+                low = bool(ess < 0.75 * n)
+            if low:
+                with span("mw.blockwise"), _DistCalls() as calls:
+                    before = _mesh_collectives()
+                    st = g.pf_resample_blockwise(gen, st, 1, "systematic",
+                                                 **kw)
+                    if record is not None:
+                        record.append(_mesh_collectives() - before
+                                      + calls.count)
+                with span("mw.exchange"):
+                    st = g.pf_rotate_blocks(st, 1, 1, **kw)
+                    st = g.pf_shuffle_blocks(st, 1, **kw)
+            sel = g.Selection({("moving",): steps == t, ("y",): steps == t})
+            with span("mw.rejuvenate"):
+                st = g.pf_rejuvenate(gen, st, g.mh, (sel,))
+            with span("mw.resample"):
+                st = g.pf_resample(gen, st, "systematic", check=False)
+            with span("mw.translate"):
+                st = g.pf_update(gen, st, (t + 2, x0),
+                                 (g.UnknownChange(), g.NoChange()), obs,
+                                 proposal=flip, proposal_args=(t + 1,),
+                                 check=False)
+            if record is not None:
+                record.append(("ess", ess, low))
+        return st
+    return run
+
+
+class _DistCalls:
+    """Counts every call of torch.distributed's collectives and
+    point-to-point functions while active (``isend``/``irecv`` are named
+    by a ``P2POp`` and run by ``batch_isend_irecv``, counted here)."""
+    NAMES = ("all_gather", "all_gather_into_tensor", "all_gather_object",
+             "all_reduce", "all_to_all", "all_to_all_single", "broadcast",
+             "batch_isend_irecv", "send", "recv", "reduce", "reduce_scatter",
+             "scatter", "gather", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.count, self.saved = 0, {}
+        for name in self.NAMES:
+            fn = getattr(dist, name, None)
+            if fn is None:
+                continue
+            self.saved[name] = fn
+
+            def wrapped(*a, _fn=fn, **k):
+                self.count += 1
+                return _fn(*a, **k)
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+        return False
+
+
+def _mesh_collectives():
+    from genparticlefilters_tpu_torch.parallel.mesh import COLLECTIVES
+    return sum(COLLECTIVES.values())
+
+
+def _mesh_path(y_obs):
+    """(w): the mesh step at world size 1 over NCCL at N=100K: the sharded
+    run (launches, host syncs, collectives) and the same step with
+    mesh=None from the same seed, bit-equal leaf by leaf; each blockwise
+    resample made no collective and no torch.distributed call."""
+    import genparticlefilters_tpu_torch as g
+    from genparticlefilters_tpu_torch.interop import state_to_numpy
+    from genparticlefilters_tpu_torch.parallel.mesh import COLLECTIVES
+    mesh = _mesh_setup()
+    rec_m, rec_p = [], []
+    before = dict(COLLECTIVES)
+    with _DistCalls() as calls:
+        (st, syncs), counts = _path(
+            f"4w mesh step (NCCL, world 1) N={N_MAIN} T={T_MAIN}",
+            lambda: _synced(lambda: _mesh_run(y_obs, mesh)(
+                _gen(1100), None, N_MAIN, rec_m)), (G1,))
+    coll = {k: COLLECTIVES[k] - before[k] for k in before}
+    plain = _mesh_run(y_obs)(_gen(1100), None, N_MAIN, rec_p)
+    torch.cuda.synchronize()
+    a, b = state_to_numpy(st), state_to_numpy(plain)
+    if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("4w: the sharded step and mesh=None differ")
+    ess_m = [r for r in rec_m if isinstance(r, tuple)]
+    ess_p = [r for r in rec_p if isinstance(r, tuple)]
+    if [x[2] for x in ess_m] != [y[2] for y in ess_p]:
+        raise AssertionError(f"4w: ESS branches differ: {ess_m} / {ess_p}")
+    ess_bits = all(float(x[1]) == float(y[1]) for x, y in zip(ess_m, ess_p))
+    block_colls = [r for r in rec_m if not isinstance(r, tuple)]
+    if not block_colls or any(block_colls):
+        raise AssertionError(f"4w: blockwise resamples {len(block_colls)}, "
+                             f"collectives and torch.distributed calls in "
+                             f"them {block_colls}")
+    # per step: the ESS check, and the global resample's one host read of
+    # the ranks' source ranges (flagged twice: the copy and its wait)
+    n_steps = len(ess_m)
+    if len(syncs) > 3 * n_steps:
+        raise AssertionError(f"4w: {len(syncs)} host syncs for {n_steps} "
+                             f"steps: {syncs}")
+    lml_m = float(g.log_ml_estimate(st))
+    lml_p = float(g.log_ml_estimate(plain))
+    print(f"[4w mesh] {mesh!r}: {n_steps} steps, ESS branch taken "
+          f"{sum(x[2] for x in ess_m)} times; {len(block_colls)} blockwise "
+          f"resamples with 0 collectives and 0 torch.distributed calls "
+          f"(calls in the whole run {calls.count}, by kind {coll}); "
+          f"{len(syncs)} flagged synchronizing calls (limit {3 * n_steps}: "
+          f"per step the ESS check and the global resample's one read of the "
+          f"source ranges, a copy and its wait); "
+          f"every leaf bit-equal to the mesh=None run from the same seed; "
+          f"global ESS bit-equal {ess_bits}; LML {lml_m!r} sharded, "
+          f"{lml_p!r} mesh=None")
+    return counts
+
+
+def _nested_paths():
+    """Paths (t)-(w); returns the launch counts of each."""
+    seen = {"4t": _nested_path("N1", "4t", (G1,)),
+            "4u": _nested_path("N2", "4u", (G1, G2)),
+            "4v": _nested_path("N3", "4v", (G1,)),
+            "4v pp": _nested_path("N3", "4v per particle", (G1,),
+                                  batch_safe=False)}
+    seen["4w"] = _mesh_path(_data())
+    return seen
+
+
 def _line_step_bodies(card):
     """The Unfold step bodies one run of each 4o route executes: route A's
     full re-scans grow with t (O(T²) per run), route B's extension runs
@@ -2243,9 +2623,9 @@ def _line_step_bodies(card):
 
 def _config34_rows(y_obs):
     """(label, run, y, n, syncs allowed) of the cells timed together: the
-    object-motion filter (systematic, N=100K) beside configs 3 and 4 and
-    the call-site cells 4o and 4p, so a slow host shows in all of them and
-    a slow cell alone."""
+    object-motion filter (systematic, N=100K) beside configs 3 and 4, the
+    call-site cells 4o and 4p, the nested cells 4t-4v and the mesh step
+    4w, so a slow host shows in all of them and a slow cell alone."""
     _, y, sv_run = _sv_setup()
     line_model, _, y_line = _line_setup()
     return [(f"object motion systematic N={N_MAIN} T={T_MAIN}",
@@ -2260,7 +2640,13 @@ def _config34_rows(y_obs):
             (f"4o line model route B N={N_LINE} T={T_LINE}",
              _line_run("B", line_model), y_line, N_LINE, T_LINE),
             (f"4p plate N={N_PLATE} n={D_PLATE}", _plate_run(_plate_setup()),
-             None, N_PLATE, 0)]
+             None, N_PLATE, 0)] + [
+            (f"{cell} {shape} N={N_NEST} T={T_NEST}",
+             _nested_run(shape, _nested_models()[shape][0]),
+             _nested_data(shape), N_NEST, T_NEST - 1)
+            for cell, shape in (("4t", "N1"), ("4u", "N2"), ("4v", "N3"))] + [
+            (f"4w mesh step (NCCL, world 1) N={N_MAIN}",
+             _mesh_run(y_obs, _mesh_setup()), None, N_MAIN, 12)]
 
 
 def _host_state():
@@ -2327,10 +2713,11 @@ def _config34_timing(card, y_obs):
                                        card)
         total, top = _sync_count(run, yy, n)
         print(f"[5 syncs] {label}: {total} synchronizing CUDA calls in one "
-              f"run (limit {max_syncs}, the ESS checks); by call site: {top}")
+              f"run (limit {max_syncs}: the ESS checks, and on 4w the global "
+              f"resample's read of its source ranges); by call site: {top}")
         if total > max_syncs:
             raise AssertionError(f"{label}: {total} host syncs per run, more "
-                                 f"than the {max_syncs} ESS checks")
+                                 f"than the limit {max_syncs}")
     _line_step_bodies(card)
     for n in (N_MAIN, 1_000_000):
         w = torch.rand(n, generator=gen, device="cuda")
@@ -2463,9 +2850,19 @@ def _kernel_timing(n, card):
     c, u = _brackets(n, n, "plain", dev, gen)
     c5_pieces = _pieces(WIDTHS_C5, n, dev, gen)
     c5_parents = _clustered_parents(n, dev, gen)
+    # one [161, N] piece: index_select along the particle axis computes
+    # G3's column-mode function at the row's total width
+    c5_big, c5_idx = torch.cat(c5_pieces, 0), c5_parents.long()
     rows8 = _row_pieces((8,), n, dev, gen)
     perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
     idx = perm.long()
+    clustered8 = _clustered_parents(n, dev, gen)
+    _compare_timing(
+        f"G3 row mode] N={n} [N, 8] clustered",
+        lambda: gather_rows(rows8, clustered8),
+        lambda: gather_rows_plain(rows8, clustered8), card,
+        (2 * 8 + 1) * 4 * n,
+        lambda: torch.index_select(rows8[0], 0, clustered8.long()))
     return {
         G3R: _compare_timing(
             f"G3 row mode] N={n} [N, 8] permutation",
@@ -2476,7 +2873,8 @@ def _kernel_timing(n, card):
             f"G3] N={n} widths={WIDTHS_C5} clustered parents",
             lambda: gather_cols(c5_pieces, c5_parents),
             lambda: gather_cols_plain(c5_pieces, c5_parents), card,
-            (2 * sum(WIDTHS_C5) + 1) * 4 * n),
+            (2 * sum(WIDTHS_C5) + 1) * 4 * n,
+            lambda: torch.index_select(c5_big, 1, c5_idx)),
         G1: _compare_timing(
             f"G1] N={n} widths={WIDTHS}",
             lambda: resample_gather_split(pieces, F),
@@ -2703,11 +3101,15 @@ def _pp_rows(y_obs):
                  None, N_TM))
     rows.append((f"4s positional model N={N_MAIN}", _quad_run(False),
                  _quad_run(True), None, N_MAIN))
+    rows.append((f"4v N3 N={N_NEST} T={T_NEST}",
+                 _nested_run("N3", _nested_models(False)["N3"][0]),
+                 _nested_run("N3", _nested_models()["N3"][0]),
+                 _nested_data("N3"), N_NEST))
     return rows
 
 
 def _pp_timing(card, y_obs):
-    """4q, 4r and 4s per particle beside their batched counterparts, in
+    """4q, 4r, 4s and 4v per particle beside their batched counterparts, in
     turns at one point of the run: ms per run (median of 5 after a
     warm-up), profiled kernels, device busy ms and idle share, the
     boundary copies of one run and their device time; one 4q run profiled
@@ -2953,6 +3355,7 @@ def main():
     phase_build()
     if args.config34_only:
         _config34_wall(card, "in a fresh process", _data())
+        torch.distributed.destroy_process_group()
         return
     max_err = phase_kernel_vs_plain()
     y_obs = _data()
@@ -2967,6 +3370,8 @@ def main():
                 G3: seen["4f"][G3],
                 G3R: seen["4j"][G3R],
                 G4: seen["4d"][G4]}
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[name], "max_abs_err": max_err[name],

@@ -27,6 +27,16 @@ entries, so a host value enters by a fill kernel and no device mask is
 read; where they decide the layout (an empty trace) they count as the
 JAX package's dense ``[T]``-masked entries: the site is stored per
 particle.
+
+Combinators nest. An Unfold inside an Unfold step keeps its active length
+a Python int: the outer store records the inner lengths as a
+:class:`~.packed.StaticColumn` (one value per outer step, no device
+column), and the inner packed store packs into the outer ``mat`` rows. A
+``MapCombinator`` of an Unfold keeps the elements' common length a Python
+int and stacks each element leaf at the plate axis in front, or after the
+particle axis where that leads; choices, masks and selects of such
+stacked traces go element by element (or step by step), so no reader
+ever sees an inner store with extra leading axes.
 """
 
 from __future__ import annotations
@@ -38,9 +48,9 @@ import torch
 from .choicemap import ChoiceMap, Entry, Selection, EMPTY
 from .gfi import (GenFn, Trace, Extend, NoChange, current_batch, _where_lead,
                   _to_batch, _batch_tree, _assess_device, ABSTRACT)
-from .packed import (StepStorage, make_storage, unpack_tree, read_step,
-                     write_steps, zeros_column, pack_column, fits_layout,
-                     put_rows)
+from .packed import (StepStorage, StaticColumn, make_storage, unpack_tree,
+                     read_step, write_steps, zeros_column, pack_column,
+                     fits_layout, holds_store, put_extra, put_rows)
 from .tree import (tree_leaves, tree_map, tree_flatten, tree_unflatten,
                    flatten_up_to)
 
@@ -157,6 +167,67 @@ def _stack_padded(states, T):
     return tree_map(stack, *states)
 
 
+def _select_store(accept, new_st: StepStorage, old_st: StepStorage):
+    """``where(accept, new, old)`` over two stores of one layout: ``mat``
+    at its lane (particle) axis, each extra at the particle axis its spec
+    records. Extras shared across particles (an observation stored once,
+    the per-step lengths of an inner Unfold) hold the same kept value on
+    both sides and come from ``new_st`` unselected."""
+    def at(pax, a, b):
+        if a is b:
+            return a
+        c = accept
+        if c.dim():
+            c = c.reshape((1,) * pax + (-1,) + (1,) * (a.dim() - pax - 1))
+        return torch.where(c, a, b)
+    mat = None if new_st.mat is None else at(1, new_st.mat, old_st.mat)
+    extras = list(new_st.extras)
+    for s in new_st.layout.specs:
+        if s.kind == 1 and s.pax is not None:   # _KIND_EXTRA
+            extras[s.off] = at(s.pax, extras[s.off], old_st.extras[s.off])
+    return StepStorage(mat, extras, new_st.layout)
+
+
+def _zeros_stacked(col, T, device):
+    """Structural zeros of a column tree stacked over ``T`` steps: tensors
+    ``[T, ...]``, Python numbers a :class:`StaticColumn` of zeros."""
+    return tree_map(
+        lambda l: (StaticColumn([type(l)(0)] * T)
+                   if isinstance(l, (bool, int, float))
+                   else torch.zeros((T,) + tuple(l.shape), dtype=l.dtype,
+                                    device=device)), col)
+
+
+def _stack_masks(masks, device, d):
+    """Stack entry masks (each True, False or a bool tensor over the
+    leading axes of its value) at axis ``d``, or at 0 where they are too
+    short to reach it; a static True or False becomes a full tensor of the
+    other masks' shape."""
+    if all(m is True for m in masks):
+        return True
+    shapes = [tuple(m.shape) for m in masks if isinstance(m, torch.Tensor)]
+    shape = torch.broadcast_shapes(*shapes) if shapes else ()
+    ms = [torch.full(shape, bool(m), dtype=torch.bool, device=device)
+          if isinstance(m, bool) else m.to(torch.bool).expand(shape)
+          for m in masks]
+    return torch.stack(ms, d if len(shape) >= d else 0)
+
+
+def _stack_choicemaps(maps, dim_of) -> ChoiceMap:
+    """One choicemap from same-keyed per-step or per-element maps, each
+    entry's values (and masks) stacked at ``dim_of(address)``."""
+    out = {}
+    for k in maps[0].entries:
+        es = [m.entries[k] for m in maps]
+        vals = [torch.as_tensor(e.value) for e in es]
+        shape = torch.broadcast_shapes(*[tuple(v.shape) for v in vals])
+        d = dim_of(k)
+        value = torch.stack([v.expand(shape) for v in vals], d)
+        out[k] = Entry(value, _stack_masks([e.mask for e in es],
+                                           value.device, d))
+    return ChoiceMap(out)
+
+
 class Unfold(GenFn):
     """Markov-chain combinator over a step generative function.
 
@@ -185,6 +256,11 @@ class Unfold(GenFn):
     # -- helpers ----------------------------------------------------------
     @staticmethod
     def _split_args(args):
+        if isinstance(args[0], torch.Tensor):
+            raise TypeError(
+                "Unfold: the active length (args[0]) is a tensor; pass a "
+                "Python int (inside a step, compute it from the step index "
+                "and model constants), so that no device value is read")
         return int(args[0]), args[1], tuple(args[2:])
 
     def _ran(self, k):
@@ -335,6 +411,11 @@ class Unfold(GenFn):
         col_leaves = [flatten_up_to(td, c) for c in cols]
         out = []
         for i, leaf in enumerate(leaves):
+            if isinstance(leaf, StaticColumn):
+                for j, cl in enumerate(col_leaves):
+                    leaf = leaf.with_value(t0 + j, cl[i])
+                out.append(leaf)
+                continue
             vals = [torch.as_tensor(cl[i]) for cl in col_leaves]
             per = tuple(leaf.shape[1:])
             shape = torch.broadcast_shapes(per,
@@ -365,9 +446,7 @@ class Unfold(GenFn):
         step_tr, _ = self.step.generate(gen, (0, state0) + params,
                                         self._layout_cm(dense, by_t, device))
         col = _col_tree(_slim_steps(step_tr), step_tr.get_retval())
-        stacked = tree_map(
-            lambda l: torch.zeros((self.T,) + tuple(l.shape), dtype=l.dtype,
-                                  device=device), col)
+        stacked = _zeros_stacked(col, self.T, device)
         store = make_storage(stacked, _storage_spec(self, stacked, b),
                              self.T, batched=b is not None)
         carry = tree_map(torch.zeros_like, step_tr.get_retval())
@@ -507,8 +586,7 @@ class Unfold(GenFn):
         """The old choices of the steps in ``[t_new, t_old)``."""
         if t_new >= t_old or om is False:
             return EMPTY
-        old = self.step.trace_choices(unpack_tree(tr.inner["store"],
-                                                  "steps"))
+        old = self._stacked_choices(tr.inner["store"])
         steps = torch.arange(self.T, device=device)
         shrink = torch.logical_and(steps >= t_new, steps < t_old)
         if om is not True:
@@ -646,7 +724,8 @@ class Unfold(GenFn):
                   if s.kind == 1 and s.pax is None}   # _KIND_EXTRA
         if cols and not per_particle:
             mat = None if mat is None else mat.clone()
-            extras = [e.clone() for e in extras]
+            extras = [e if isinstance(e, StaticColumn) else e.clone()
+                      for e in extras]
         for t, col, state in cols:
             cslab, extra_cols = pack_column(store, _col_tree(col, state))
             if cslab is not None:
@@ -665,10 +744,7 @@ class Unfold(GenFn):
                     continue
                 row = v if i in shared else _where_lead(accept, v,
                                                         extras[i][t])
-                if per_particle:
-                    extras[i] = put_rows(extras[i], t, row[None])
-                else:
-                    extras[i][t] = row
+                extras[i] = put_extra(extras[i], t, row, per_particle, True)
         new_store = StepStorage(mat, tuple(extras), store.layout)
         score = tr.score + torch.where(accept, delta["score_delta"], 0.0)
         # the window always ends at the last active step: the carry is the
@@ -810,11 +886,21 @@ class Unfold(GenFn):
         return self.trace_retval(tr), sel_old, score
 
     # -- structure --------------------------------------------------------
+    def _stacked_choices(self, store: StepStorage) -> ChoiceMap:
+        """The step choices of all ``T`` stored steps, stacked on a leading
+        time axis. A column that holds another combinator's store (an
+        Unfold in the step) is read step by step, so the inner store is
+        only ever seen in its own per-step form."""
+        if not holds_store(store.layout.treedef):
+            return self.step.trace_choices(unpack_tree(store, "steps"))
+        return _stack_choicemaps(
+            [self.step.trace_choices(read_step(store, t)["steps"])
+             for t in range(self.T)], lambda k: 0)
+
     def trace_choices(self, tr: Trace) -> ChoiceMap:
         """Stacked choices ``[T, N, ...]`` (shared sites ``[T, ...]``),
         each masked by the active steps (and the outer mask)."""
-        steps = unpack_tree(tr.inner["store"], "steps")
-        stacked = self.step.trace_choices(steps)
+        stacked = self._stacked_choices(tr.inner["store"])
         active = self._active_tb(tr.inner["t"], _outer_mask(tr),
                                  tr.score.device)
         return ChoiceMap({k: Entry(e.value, _and_lead(e.mask, active))
@@ -848,14 +934,12 @@ class Unfold(GenFn):
         """Accept/reject select keeping the lockstep active length and the
         args of the NEW trace. A per-particle ``[b]`` accept aligns with
         the LANE axis of the packed ``mat [T*R, b]``."""
-        from .gfi import select_batched
         new_st, old_st = new_tr.inner["store"], old_tr.inner["store"]
         if (new_st.layout.specs != old_st.layout.specs
                 or new_st.layout.R != old_st.layout.R):
             raise ValueError("select_trace: the two Unfold traces have "
                              "different storage layouts")
-        acc_t = accept if accept.dim() == 0 else accept[None]
-        store = select_batched(acc_t, new_st, old_st)
+        store = _select_store(accept, new_st, old_st)
         om_new, om_old = _outer_mask(new_tr), _outer_mask(old_tr)
         if om_new is True and om_old is True:
             om = True
@@ -884,7 +968,12 @@ class Unfold(GenFn):
                         spec_n(tr.score, axis))
 
     def trace_choice_axes(self, tr: Trace, axis: int = 0):
-        steps = unpack_tree(tr.inner["store"], "steps")
+        store = tr.inner["store"]
+        if holds_store(store.layout.treedef):
+            # one step's choices, one time axis in front
+            return self.step.trace_choice_axes(read_step(store, 0)["steps"],
+                                               axis + 1)
+        steps = unpack_tree(store, "steps")
         return self.step.trace_choice_axes(steps, axis + 1)
 
     def trace_axes(self, tr: Trace, axis: int = 0, args_shared: bool = False):
@@ -946,13 +1035,14 @@ class MapCombinator(GenFn):
         return f"MapCombinator({self.kernel!r}, n={self.n})"
 
     # -- per-element slicing and stacking ---------------------------------
-    def _elem_leaf(self, x, i):
+    def _elem_leaf(self, x, i, b=None):
         """Element ``i`` of a leaf: ``[b, n, ...]`` at axis 1, ``[n, ...]``
-        at axis 0, anything else passes whole."""
+        at axis 0, anything else passes whole. ``b`` is the particle count
+        (default: the batched interpretation's)."""
         shape = getattr(x, "shape", None)
         if shape is None:
             return x
-        b = current_batch()
+        b = current_batch() if b is None else b
         if b is not None and len(shape) >= 2 and shape[0] == b \
                 and shape[1] == self.n:
             return x[:, i]
@@ -960,8 +1050,26 @@ class MapCombinator(GenFn):
             return x[i]
         return x
 
-    def _elem(self, tree, i):
-        return tree_map(lambda x: self._elem_leaf(x, i), tree)
+    def _elem(self, tree, i, b=None):
+        return tree_map(lambda x: self._elem_leaf(x, i, b), tree)
+
+    @staticmethod
+    def _nested(steps) -> bool:
+        """Whether the element traces hold another combinator's packed
+        store (a plate of Unfolds): the stacked form is then read and
+        written element by element."""
+        return holds_store(tree_flatten(steps)[1])
+
+    def _lift(self, ax, axis):
+        """An element leaf's particle axis -> the stacked leaf's: a leading
+        particle axis stays (the plate follows it), any other moves one
+        down (the plate is in front)."""
+        return ax if ax is None or ax == axis else ax + 1
+
+    def _restack(self, tr: Trace, elems) -> Trace:
+        """``tr`` with its element traces replaced by ``elems``."""
+        steps = self._stack(elems, tr.score.device)
+        return Trace(self, tr.args, tr.retval, tr.score, {"steps": steps})
 
     def _elem_cm(self, cm: ChoiceMap, i) -> ChoiceMap:
         return ChoiceMap({k: Entry(self._elem_leaf(e.value, i),
@@ -972,7 +1080,13 @@ class MapCombinator(GenFn):
     @staticmethod
     def _stack(outs, device):
         """Stack same-structured element results along the plate axis:
-        at 1 for leaves with a leading particle axis, else at 0."""
+        at 1 for leaves with a leading particle axis, else at 0. Where the
+        elements hold a packed store, the particle axis of each leaf is
+        its spec (trace leaves by their ``trace_axes``), and a Python
+        number the spec keeps shared — an Unfold's active length — stays a
+        Python number, which every element must agree on (the elements run
+        in lockstep)."""
+        from .batching import gen_spec, perparticle_specs
         from .choicemap import value_on
         b = current_batch()
         all_leaves = [tree_flatten(o)[0] for o in outs]
@@ -980,13 +1094,31 @@ class MapCombinator(GenFn):
         if any(len(ls) != td.n_leaves for ls in all_leaves):
             raise ValueError("MapCombinator: the elements' results differ "
                              "in structure")
+        if holds_store(td):
+            with (perparticle_specs() if b is None
+                  else contextlib.nullcontext()):
+                axes = flatten_up_to(td, gen_spec(outs[0], 0, b))
+        else:
+            axes = [False] * td.n_leaves
         stacked = []
-        for xs in zip(*all_leaves):
+        for xs, p in zip(zip(*all_leaves), axes):
+            if p is None and not isinstance(xs[0], torch.Tensor):
+                if any(x != xs[0] for x in xs):
+                    raise ValueError(
+                        f"MapCombinator: the elements differ in a Python "
+                        f"value their layout keeps shared ({list(xs)}); an "
+                        f"Unfold under a plate runs every element to one "
+                        f"active length")
+                stacked.append(xs[0])
+                continue
             xs = [x if isinstance(x, torch.Tensor) else value_on(x, device)
                   for x in xs]
             shape = torch.broadcast_shapes(*[tuple(x.shape) for x in xs])
-            ax = 1 if (b is not None and len(shape) >= 1
-                       and shape[0] == b) else 0
+            if p is False:
+                lead = len(shape) >= 1 and shape[0] == b
+            else:
+                lead = p == 0
+            ax = 1 if (b is not None and lead) else 0
             stacked.append(torch.stack([x.expand(shape) for x in xs], ax))
         return tree_unflatten(td, stacked)
 
@@ -1063,29 +1195,73 @@ class MapCombinator(GenFn):
         return retvals, self._psum(sos), self._psum(scs)
 
     # -- structure --------------------------------------------------------
+    def _elems(self, tr: Trace):
+        """The element traces of a stacked trace (particle count from its
+        score: ``[b]`` batched, 0-d per particle)."""
+        b = tr.score.shape[0] if tr.score.dim() else None
+        return [self._elem(tr.inner["steps"], i, b) for i in range(self.n)]
+
     def trace_choices(self, tr: Trace) -> ChoiceMap:
-        return self.kernel.trace_choices(tr.inner["steps"])
+        steps = tr.inner["steps"]
+        if not self._nested(steps):
+            return self.kernel.trace_choices(steps)
+        elems = self._elems(tr)
+        axes = self.kernel.trace_choice_axes(elems[0], 0)
+        batched = tr.score.dim() > 0
+        return _stack_choicemaps(
+            [self.kernel.trace_choices(e) for e in elems],
+            lambda k: 1 if batched and axes.get(k, 0) == 0 else 0)
 
     def mask_trace(self, tr: Trace, m) -> Trace:
-        return Trace(tr.gen_fn, tr.args, tr.retval, tr.score,
-                     {"steps": self.kernel.mask_trace(tr.inner["steps"], m)})
+        steps = tr.inner["steps"]
+        if not self._nested(steps):
+            return Trace(tr.gen_fn, tr.args, tr.retval, tr.score,
+                         {"steps": self.kernel.mask_trace(steps, m)})
+        if m is True:
+            return tr
+        return self._restack(tr, [self.kernel.mask_trace(e, m)
+                                  for e in self._elems(tr)])
 
     def trace_axes(self, tr: Trace, axis: int = 0, args_shared: bool = False):
-        """Particle-major throughout: every leaf under the plate (nested
-        combinator traces and their args included) has its particle axis
-        at ``axis``; leaves without one are shared."""
+        """Particle-major throughout: every leaf under the plate has its
+        particle axis at ``axis``; leaves without one are shared. Element
+        traces that hold a packed store (an Unfold's ``mat [T*R, b]``)
+        keep theirs where it is, one down: the plate goes in front."""
         from .batching import const_spec, gen_spec, spec_n
         n = spec_n(tr.score, axis)
         args_spec = (const_spec(tr.args, None) if args_shared
                      else gen_spec(tr.args, axis, n))
+        steps = tr.inner["steps"]
+        if self._nested(steps):
+            if axis != 0:
+                raise NotImplementedError(
+                    "a MapCombinator of a combinator inside another "
+                    "combinator's step")
+            elem = self._elem(steps, 0, n)
+            spec = self.kernel.trace_axes(elem, 0)
+            steps_spec = tree_unflatten(
+                tree_flatten(steps)[1],
+                [self._lift(ax, 0) for ax in
+                 flatten_up_to(tree_flatten(elem)[1], spec)])
+        else:
+            steps_spec = const_spec(steps, axis, n)
         return Trace(self, args_spec, const_spec(tr.retval, axis, n), axis,
-                     {"steps": const_spec(tr.inner["steps"], axis, n)})
+                     {"steps": steps_spec})
 
     def select_trace(self, accept, new_tr: Trace, old_tr: Trace) -> Trace:
         """``where(accept, new, old)`` by the layout: leaves shared across
         particles (``trace_axes`` gives ``None``) come from ``new_tr``
         unselected — a shared ``[n]`` leaf must not meet a ``[b]``
-        accept — and the stored args pass through from ``new_tr``."""
+        accept — and the stored args pass through from ``new_tr``.
+        Element traces that hold a packed store select element by
+        element."""
+        if self._nested(new_tr.inner["steps"]):
+            sel = self._restack(new_tr, [
+                self.kernel.select_trace(accept, a, o) for a, o in
+                zip(self._elems(new_tr), self._elems(old_tr))])
+            return Trace(self, new_tr.args, new_tr.retval,
+                         _where_lead(accept, new_tr.score, old_tr.score),
+                         sel.inner)
         spec = self.trace_axes(new_tr)
         parts = lambda tr: (tr.retval, tr.score, tr.inner)  # noqa: E731
         new_l, td = tree_flatten(parts(new_tr))
@@ -1097,5 +1273,10 @@ class MapCombinator(GenFn):
         return Trace(self, new_tr.args, retval, score, inner)
 
     def trace_choice_axes(self, tr: Trace, axis: int = 0):
+        steps = tr.inner["steps"]
+        if self._nested(steps):
+            return {k: self._lift(ax, axis) for k, ax in
+                    self.kernel.trace_choice_axes(self._elems(tr)[0],
+                                                  axis).items()}
         return {k: axis for k in
-                self.kernel.trace_choice_axes(tr.inner["steps"], axis)}
+                self.kernel.trace_choice_axes(steps, axis)}

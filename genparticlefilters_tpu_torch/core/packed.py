@@ -11,7 +11,10 @@ Stacked leaves that cannot pack stay ordinary leaves in ``extras``:
 values shared across particles (fully-constrained observation sites),
 and dtypes outside {float32, int32, bool}. Zero-size leaves keep only a
 spec. float32 rows are bit patterns (``view(torch.int32)``), bool rows
-are 0/1.
+are 0/1. A Python number in a step's column — the active length of an
+Unfold called inside the step — is host metadata: its extra is a
+:class:`StaticColumn` of one value per step, with no device column, so
+writing it reads nothing from the device.
 
 The same :class:`StorageLayout` describes the batched form (``mat [T*R,
 N]``) and the per-particle form inside a ``vmap_gfi`` map (``mat
@@ -32,7 +35,8 @@ from .tree import tree_flatten, tree_unflatten, flatten_up_to
 
 __all__ = ["StepStorage", "StorageLayout", "LeafSpec", "make_storage",
            "unpack_tree", "read_step", "write_steps", "zeros_column",
-           "pack_column", "fits_layout", "put_rows"]
+           "pack_column", "fits_layout", "put_rows", "StaticColumn",
+           "holds_store", "put_extra"]
 
 _KIND_MAT = 0
 _KIND_EXTRA = 1
@@ -57,6 +61,57 @@ class StorageLayout(NamedTuple):
     specs: Tuple[LeafSpec, ...]
     T: int
     R: int
+
+
+class StaticColumn:
+    """Per-step Python values of one stacked leaf (a tree leaf, not a
+    node): the active lengths of an Unfold inside an Unfold step, one per
+    outer step. Immutable; :meth:`with_value` returns a copy with one step
+    replaced. Indexing by step gives the Python value."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, values):
+        self.values = tuple(values)
+
+    def __getitem__(self, t):
+        return self.values[t]
+
+    def __len__(self):
+        return len(self.values)
+
+    def __iter__(self):
+        return iter(self.values)
+
+    def __eq__(self, other):
+        return (isinstance(other, StaticColumn)
+                and self.values == other.values)
+
+    def __hash__(self):
+        return hash(self.values)
+
+    def __repr__(self):
+        return f"StaticColumn{self.values}"
+
+    def with_value(self, t: int, v) -> "StaticColumn":
+        if isinstance(v, torch.Tensor):
+            raise TypeError(
+                "a Python number stored per step (the active length of an "
+                "Unfold called inside an Unfold step) was computed from a "
+                "tensor; compute it from Python values (the step index and "
+                "model constants), so that no device value is read")
+        vals = list(self.values)
+        vals[t] = v
+        return StaticColumn(vals)
+
+
+def holds_store(treedef) -> bool:
+    """Whether a treedef holds a :class:`StepStorage` node: a column that
+    holds another combinator's packed store (an Unfold inside an Unfold
+    step), whose stacked form its own readers cannot take."""
+    if treedef.kind is StepStorage:
+        return True
+    return any(holds_store(c) for c in treedef.children)
 
 
 class StepStorage:
@@ -143,6 +198,11 @@ def make_storage(tree, spec, T: int, batched: bool = True) -> StepStorage:
     specs, parts, extras = [], [], []
     off = 0
     for leaf, ax in zip(leaves, spec_elems):
+        if isinstance(leaf, StaticColumn):
+            specs.append(LeafSpec(_KIND_EXTRA, len(extras), 0, None, (),
+                                  None))
+            extras.append(leaf)
+            continue
         shape = tuple(leaf.shape)
         pax = ax if isinstance(ax, int) else None
         packable = (leaf.dtype in _PACKABLE and len(shape) >= 1
@@ -286,8 +346,9 @@ def zeros_column(st: StepStorage):
     for s in lo.specs:
         if s.kind == _KIND_EXTRA:
             e = st.extras[s.off]
-            out.append(torch.zeros(tuple(e.shape[1:]), dtype=e.dtype,
-                                   device=e.device))
+            out.append(type(e[0])(0) if isinstance(e, StaticColumn)
+                       else torch.zeros(tuple(e.shape[1:]), dtype=e.dtype,
+                                        device=e.device))
         else:
             out.append(_zero_column_leaf(s, n, device))
     return tree_unflatten(lo.treedef, out)
@@ -322,7 +383,11 @@ def fits_layout(st: StepStorage, cols) -> bool:
         for v, s in zip(flatten_up_to(lo.treedef, col), lo.specs):
             if s.kind != _KIND_EXTRA or s.pax is not None:
                 continue
-            v, e = torch.as_tensor(v), st.extras[s.off]
+            e = st.extras[s.off]
+            if isinstance(e, StaticColumn):
+                e.with_value(0, v)    # raises for a tensor value
+                continue
+            v = torch.as_tensor(v)
             # per particle, a value that differs across particles is a
             # mapped tensor of the per-particle shape
             if v.dim() > e.dim() - 1 or (mapped(v) and not mapped(e)):
@@ -336,6 +401,21 @@ def put_rows(x, start: int, rows):
     and ``x`` not."""
     end = start + rows.shape[0]
     return torch.cat([x[:start], rows.to(x.dtype), x[end:]])
+
+
+def put_extra(e, t: int, v, per_particle: bool, copied: bool):
+    """Extra ``e`` with step ``t`` set to ``v``: a new :class:`StaticColumn`
+    for a static extra, an out-of-place row write per particle, else an
+    in-place write into ``e`` (into a copy first unless ``copied``)."""
+    if isinstance(e, StaticColumn):
+        return e.with_value(t, v)
+    v = torch.as_tensor(v, dtype=e.dtype, device=e.device)
+    if per_particle:
+        return put_rows(e, t, v[None])
+    if not copied:
+        e = e.clone()
+    e[t] = v
+    return e
 
 
 def write_steps(st: StepStorage, t0: int, cols) -> StepStorage:
@@ -355,15 +435,9 @@ def write_steps(st: StepStorage, t0: int, cols) -> StepStorage:
         for i, v in enumerate(extra_cols):
             if v is None:
                 continue
-            v = torch.as_tensor(v, dtype=extras[i].dtype,
-                                device=extras[i].device)
-            if per_particle:
-                extras[i] = put_rows(extras[i], t0 + j, v[None])
-                continue
-            if i not in copied:
-                extras[i] = extras[i].clone()
-                copied.add(i)
-            extras[i][t0 + j] = v
+            extras[i] = put_extra(extras[i], t0 + j, v, per_particle,
+                                  i in copied)
+            copied.add(i)
     mat = st.mat
     if slabs and mat is not None:
         if per_particle:

@@ -59,6 +59,13 @@ its sub-calls)::
 
 ``SVParams`` and the tempered constants hold no learned parameters either.
 
+Nested combinators keep their inner lengths on the host in the port and
+as int32 leaves in JAX: an Unfold inside an Unfold step has its active
+length (and its ``args[0]``) as a ``[T]`` int32 extra in JAX and a
+:class:`~.core.packed.StaticColumn` here; a ``MapCombinator`` of Unfolds
+has the elements' common length as an ``[n]`` int32 leaf in JAX and one
+Python int here. Both are read on the host, into the port and back.
+
 float32 leaves cross bit for bit and bool leaves as bool. The port's own
 flattening (core/tree.py) has the same order, so the structure comes from
 a template state built by the port itself. This module never sees JAX.
@@ -69,6 +76,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.packed import StaticColumn
 from .core.tree import tree_flatten, tree_unflatten
 from .smc.initialize import pf_initialize
 from .utils.device import entry_device
@@ -96,8 +104,18 @@ def state_from_numpy(model, arrays, model_args, observations,
     leaves = []
     for i, (a, ref) in enumerate(zip(arrays, t_leaves)):
         a = np.asarray(a)
+        if isinstance(ref, StaticColumn):
+            # an inner Unfold's length per outer step: JAX's int32 [T] leaf
+            leaves.append(StaticColumn(int(v) for v in a.reshape(-1)))
+            continue
         if not isinstance(ref, torch.Tensor):
-            leaves.append(int(a))
+            # a length JAX stacks over a plate ([n], every element alike)
+            vals = set(int(v) for v in a.reshape(-1))
+            if len(vals) != 1:
+                raise ValueError(f"leaf {i}: the port keeps this length a "
+                                 f"Python int, shared by every element; "
+                                 f"got the values {sorted(vals)}")
+            leaves.append(vals.pop())
             continue
         x = torch.from_numpy(np.array(a)).to(device)
         if x.dtype != ref.dtype or tuple(x.shape) != tuple(ref.shape):

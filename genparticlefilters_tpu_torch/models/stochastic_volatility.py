@@ -82,8 +82,8 @@ def sv_particle_filter(gen, y_obs, n_particles: int, t_max: int,
     """Filter with move-reweight rejuvenation of the most recent
     volatility. ``rejuv_window``: the promise that the rejuvenated
     selection only touches the last k active steps, so each move
-    recomputes O(k) steps (the Unfold's full re-scan regenerate, which
-    ``None`` would ask for, is not ported)."""
+    recomputes O(k) steps; ``None`` takes the Unfold's full re-scan
+    regenerate, O(t) steps per move."""
     device = gen.device
     y_obs = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
     model = make_sv_model(t_max, p)

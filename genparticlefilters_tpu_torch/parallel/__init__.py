@@ -1,9 +1,11 @@
-"""Parallel layer: blockwise (shard-local) resampling and block exchange.
-Only the one-device form is ported; the sharded form over
-``torch.distributed`` waits for more than one card."""
+"""Parallel layer: particle meshes over ``torch.distributed``, sharded
+particle states, shard-local (blockwise) resampling and block exchange,
+on one device or across the ranks of a mesh."""
 
+from . import mesh as _mesh
 from . import distributed as _distributed
 
+from .mesh import *  # noqa: F401,F403
 from .distributed import *  # noqa: F401,F403
 
-__all__ = _distributed.__all__
+__all__ = _mesh.__all__ + _distributed.__all__

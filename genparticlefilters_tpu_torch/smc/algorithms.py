@@ -7,7 +7,10 @@
   resampling and optional rejuvenation.
 
 Both are Python loops over the steps, with the ESS trigger a Python ``if``
-on a device scalar: one host synchronisation per step. Each phase runs in
+on a device scalar: one host synchronisation per step. Given a particle
+``mesh`` (parallel/mesh.py), :func:`run_particle_filter` runs each rank's
+block of the particles: the ESS is global, so every rank takes the same
+branch, and the resample is the exact global one. Each phase runs in
 a ``torch.profiler`` span: ``{span_prefix}.initialize``, ``.ess_check``,
 ``.resample``, ``.rejuvenate`` and ``.update``; each model's wrapper
 passes its own prefix (``sv``, ``tm``).
@@ -47,7 +50,8 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
                         resample_method: str = "systematic",
                         rejuvenate_fn: Callable | None = None,
                         argdiffs=None,
-                        span_prefix: str = "smc") -> ParticleFilterState:
+                        span_prefix: str = "smc",
+                        mesh=None) -> ParticleFilterState:
     """Generic SSM particle filter, every random number drawn from
     ``gen``.
 
@@ -56,12 +60,21 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
     - ``rejuvenate_fn(gen, state, t)``: optional MCMC rejuvenation
     - ``argdiffs``: forwarded to pf_update; defaults to the incremental
       ``(Extend(1), NoChange...)`` promise.
+    - ``mesh``: each rank initializes and carries ``n_particles /
+      mesh.size`` of the particles, drawing from its own ``gen`` (seed it
+      per rank); the global resample takes the first rank's draws.
 
     The JAX package's unused ``init_args`` parameter is left out.
     """
+    n_local = n_particles if mesh is None else n_particles // mesh.size
+    if mesh is not None and n_local * mesh.size != n_particles:
+        raise ValueError(f"n_particles={n_particles} not divisible by the "
+                         f"mesh's {mesh.size} ranks")
     with span(f"{span_prefix}.initialize"):
         state = pf_initialize(gen, model, step_args_fn(0), obs_fn(0),
-                              n_particles)
+                              n_local)
+        if mesh is not None:
+            state = state.replace(mesh=mesh)
     n_args = len(step_args_fn(0))
     diffs = argdiffs if argdiffs is not None else (
         (Extend(1),) + tuple(NoChange() for _ in range(n_args - 1)))

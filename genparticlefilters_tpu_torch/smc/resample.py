@@ -468,7 +468,8 @@ def _new_weights_sub(n, log_weights, log_priorities, parents, custom):
 
 
 def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
-                      v=None):
+                      v=None, first_block: int = 0,
+                      n_blocks: int | None = None):
     """Compose the per-block offspring structures of ``K`` independent
     resamples into ONE globally clustered fused gather (the one-device path
     of ``parallel.pf_resample_blockwise``).
@@ -492,36 +493,46 @@ def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
 
     Draws come from ``gen`` unless passed. Returns ``("F", F_global)`` or
     ``("cu", (c_global, u_global))``.
+
+    ``weights_blocks`` may be the rows ``first_block ...`` of ``n_blocks``
+    (one rank's block of a sharded state): every draw is still made (or
+    passed) for all ``n_blocks`` and those rows kept, and the composition
+    is the same arithmetic on them, so each row's result is the one the
+    whole composition gives it.
     """
-    K, b = weights_blocks.shape
+    Kl, b = weights_blocks.shape
+    K = Kl if n_blocks is None else int(n_blocks)
+    rows = slice(first_block, first_block + Kl)
     dev = weights_blocks.device
-    offs = (torch.arange(K, dtype=torch.int32, device=dev) * b)[:, None]
-    kf = torch.arange(K, dtype=torch.float32, device=dev)[:, None]
+    offs = (torch.arange(first_block, first_block + Kl, dtype=torch.int32,
+                         device=dev) * b)[:, None]
+    kf = torch.arange(first_block, first_block + Kl, dtype=torch.float32,
+                      device=dev)[:, None]
     invK = 1.0 / float(K)
 
     def spacings():
         ex = _draws(e, (K, b + 1), dev, lambda: torch.empty(
             (K, b + 1), dtype=torch.float32, device=dev).exponential_(
-                generator=gen))
+                generator=gen))[rows]
         return _cummax(torch.cumsum(ex, 1))
 
     if method == "systematic":
         u = _draws(u0, (K,), dev, lambda: torch.rand(
-            (K,), generator=gen, dtype=torch.float32, device=dev))
+            (K,), generator=gen, dtype=torch.float32, device=dev))[rows]
         c = b * _cumw(weights_blocks) - u[:, None].to(torch.float64)
         F = _pinned_F(torch.floor(c).to(torch.int32) + 1, b)
-        return "F", (F + offs).reshape(K * b)
+        return "F", (F + offs).reshape(Kl * b)
     if method == "stratified":
         # unsorted stratified: per-block float brackets exactly like
         # multinomial (per-stratum draws are ascending by construction;
         # same clamp rationale as the multinomial branch)
         vv = _draws(v, (K, b), dev, lambda: torch.rand(
-            (K, b), generator=gen, dtype=torch.float32, device=dev))
+            (K, b), generator=gen, dtype=torch.float32, device=dev))[rows]
         u = (torch.arange(b, dtype=torch.float32, device=dev) + vv) / b
         c = _brackets(weights_blocks)
         u = torch.clamp_min(u, max(K, 2) * 2.0 ** -21)
-        return "cu", (((kf + c) * invK).reshape(K * b),
-                      ((kf + u) * invK).reshape(K * b))
+        return "cu", (((kf + c) * invK).reshape(Kl * b),
+                      ((kf + u) * invK).reshape(Kl * b))
     if method == "multinomial":
         ce = spacings()
         u = ce[:, :-1] / ce[:, -1:]
@@ -533,8 +544,8 @@ def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
         # after the rescale; matches the residual path's margin (2^-22
         # before its extra halving).
         u = torch.clamp_min(u, max(K, 2) * 2.0 ** -21)
-        return "cu", (((kf + c) * invK).reshape(K * b),
-                      ((kf + u) * invK).reshape(K * b))
+        return "cu", (((kf + c) * invK).reshape(Kl * b),
+                      ((kf + u) * invK).reshape(Kl * b))
     if method == "residual":
         scaled = b * weights_blocks
         det = torch.floor(scaled).to(torch.int32)
@@ -553,12 +564,13 @@ def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
         # compose sources (u, up to 1.75) and queries (rc <= 1) with the
         # SAME monotone per-block map x -> (k + x/2)/K: ascending across
         # blocks, within-block counts preserved
-        ug = ((kf + 0.5 * u) * invK).reshape(K * b)
-        rcg = ((kf + 0.5 * rc) * invK).reshape(K * b)
+        ug = ((kf + 0.5 * u) * invK).reshape(Kl * b)
+        rcg = ((kf + 0.5 * rc) * invK).reshape(Kl * b)
         _, gidx = resample_gather_split_u([], ug, rcg)
-        G = gidx.reshape(K, b) - offs  # per-block remainder hit counts
+        # per-block remainder hit counts (G2 counts within the rows given)
+        G = gidx.reshape(Kl, b) - offs + first_block * b
         F = _pinned_F(torch.cumsum(det, 1, dtype=torch.int32) + G, b)
-        return "F", (F + offs).reshape(K * b)
+        return "F", (F + offs).reshape(Kl * b)
     raise ValueError(f"no fused blockwise composition for {method!r}")
 
 
@@ -591,6 +603,9 @@ def _resample_impl(gen, state, parent_fn, priority_fn, check, F_fn=None,
     (G1) when the method has one; sub-states and the sorted methods take
     ``parent_fn``'s explicit parents."""
     is_sub = isinstance(state, ParticleFilterSubState)
+    if not is_sub and getattr(state, "mesh", None) is not None:
+        return _resample_sharded(gen, state, parent_fn, priority_fn, check,
+                                 F_fn, cu_fn)
     log_weights = state.log_weights
     n = state.n_particles
     custom = priority_fn is not None
@@ -621,6 +636,127 @@ def _resample_impl(gen, state, parent_fn, priority_fn, check, F_fn=None,
     new_lw = _new_weights_full(n, log_weights, log_priorities, parents,
                                custom)
     return ParticleFilterState(new_traces, new_lw, new_lml, parents)
+
+
+def _resample_sharded(gen, state, parent_fn, priority_fn, check, F_fn,
+                      cu_fn):
+    """The exact global resample of a state sharded over a particle mesh,
+    equal bit for bit to the unsharded resample given the same weights and
+    draws:
+
+    - one all-gather of the ``[N]`` log weights, so every rank computes
+      the global parents with the unsharded route's draws and kernels (G1
+      or G2 with zero pieces, or the explicit parents of the sorted
+      methods); the first rank's parents are broadcast, so the ranks agree
+      even where the card's scans are not bit-reproducible;
+    - this rank's output slots read their rows: for non-decreasing parents
+      (every fused method) one contiguous source range, moved by one
+      ``all_to_all_single`` of the packed rows (the split sizes follow
+      from the parents on every rank, one host read of the ``K`` ranges)
+      and gathered by G1; for the sorted methods an all-gather of the
+      packed rows and a G3 gather.
+
+    The first rank's draws decide: seed its ``gen`` as the unsharded
+    run's to reproduce it."""
+    from ..parallel import mesh as pm
+    mesh = state.mesh
+    b, K, i = state.n_particles, mesh.size, mesh.rank
+    n = b * K
+    log_weights = pm.all_gather(state.log_weights, mesh)
+    custom = priority_fn is not None
+    log_priorities = priority_fn(log_weights) if custom else log_weights
+    weights, invalid = safe_softmax(log_priorities)
+    apply_check(invalid, check)
+    if cu_fn is not None:
+        parents = resample_gather_split_u([], *cu_fn(gen, weights))[1]
+    elif F_fn is not None:
+        parents = resample_gather_split([], F_fn(gen, weights))[1]
+    else:
+        parents = parent_fn(gen, weights, log_priorities).to(torch.int32)
+    parents = pm.broadcast(parents, mesh)
+    mine = parents[i * b:(i + 1) * b]
+    if cu_fn is not None or F_fn is not None:
+        new_traces = _exchange_ranges(state.traces, parents, mesh)
+    else:
+        new_traces = _exchange_all(state.traces, mine, mesh)
+    new_lml = (state.log_ml_est + logsumexp(log_weights)
+               - log_float32(n, log_weights.device))
+    new_lw = _new_weights_full(n, log_weights, log_priorities, parents,
+                               custom)[i * b:(i + 1) * b]
+    return ParticleFilterState(new_traces, new_lw, new_lml, mine, mesh=mesh)
+
+
+def _local_pieces(traces):
+    """The packed ``[w, b]`` pieces of a block's traces, as one ``[W, b]``
+    matrix, with what rebuilds the traces. Leaves outside the pack (other
+    dtypes) cannot cross ranks here."""
+    leaves, axes, treedef = flatten_with_axes(traces)
+    rows, meta = _pack_rows(leaves, axes)
+    for leaf, (_, _, width, ax, _) in zip(leaves, meta):
+        if (width == 0 and ax is not None and isinstance(leaf, torch.Tensor)
+                and leaf.dim() > ax):
+            raise NotImplementedError(
+                f"a {leaf.dtype} leaf with a particle axis cannot move "
+                f"across ranks (only float32, int32 and bool leaves pack)")
+    pieces = [r for r in rows if r is not None]
+    widths = [p.shape[0] for p in pieces]
+    return pieces, widths, (leaves, meta, treedef)
+
+
+def _rebuild(outs, how, parents, n_out):
+    leaves, meta, treedef = how
+    return tree_unflatten(treedef, _unpack_split(outs, leaves, meta,
+                                                 parents, n_out))
+
+
+def _exchange_ranges(traces, parents, mesh):
+    """Rows for non-decreasing global ``parents``: rank ``d``'s slots read
+    the contiguous source range ``[parents[d*b], parents[(d+1)*b - 1]]``;
+    each rank sends each other rank the part of that range it holds, in
+    one ``all_to_all_single`` of the packed rows (particle-major), and G1
+    gathers this rank's slots from the range it received."""
+    from ..parallel import mesh as pm
+    K, i = mesh.size, mesh.rank
+    b = parents.shape[0] // K
+    bounds = parents.reshape(K, b)[:, [0, -1]].tolist()   # one host read
+    pieces, widths, how = _local_pieces(traces)
+    if not pieces:
+        return _rebuild([], how, parents[i * b:(i + 1) * b], b)
+    rows = torch.cat(pieces, 0).t()                        # [b, W]
+    sends, in_splits = [], []
+    for lo, hi in bounds:
+        s, e = max(lo, i * b) - i * b, min(hi + 1, (i + 1) * b) - i * b
+        in_splits.append(max(e - s, 0))
+        if e > s:
+            sends.append(rows[s:e])
+    lo, hi = bounds[i]
+    out_splits = [max(min(hi + 1, (r + 1) * b) - max(lo, r * b), 0)
+                  for r in range(K)]
+    send = (torch.cat(sends, 0) if sends
+            else rows[:0])
+    got = pm.all_to_all(send, hi - lo + 1, in_splits, out_splits, mesh)
+    src = got.t().contiguous()                             # [W, n_src]
+    # this rank's hit counts over the range: F[k] = #{slots: parent <= k}
+    mine = parents[i * b:(i + 1) * b] - lo
+    F = torch.searchsorted(mine, torch.arange(
+        hi - lo + 1, dtype=torch.int32, device=mine.device), right=True,
+        out_int32=True)
+    outs, local = resample_gather_split(
+        list(torch.split(src, widths, 0)), F, n_out=b)
+    return _rebuild(outs, how, local, b)
+
+
+def _exchange_all(traces, mine, mesh):
+    """Rows for any parents: every rank's packed rows all-gathered, and
+    this rank's slots gathered from them by G3."""
+    from ..parallel import mesh as pm
+    pieces, widths, how = _local_pieces(traces)
+    if not pieces:
+        return _rebuild([], how, mine, mine.shape[0])
+    rows = torch.cat(pieces, 0).t().contiguous()           # [b, W]
+    full = pm.all_gather(rows, mesh).t().contiguous()      # [W, N]
+    outs = gather_cols(list(torch.split(full, widths, 0)), mine)
+    return _rebuild(outs, how, mine, mine.shape[0])
 
 
 def pf_multinomial_resample(gen, state, priority_fn=None, check="warn",

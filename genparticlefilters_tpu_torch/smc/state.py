@@ -26,24 +26,30 @@ __all__ = ["ParticleFilterState", "ParticleFilterSubState",
 
 
 class ParticleFilterState:
-    """traces + log_weights [N] + log_ml_est + parents [N]."""
+    """traces + log_weights [N] + log_ml_est + parents [N]. A state
+    sharded over a particle mesh (parallel/mesh.py ``shard_state``) holds
+    this rank's block and its ``mesh``; ``n_particles`` is then the
+    block's count, and the global reductions below span every rank."""
 
-    __slots__ = ("traces", "log_weights", "log_ml_est", "parents")
+    __slots__ = ("traces", "log_weights", "log_ml_est", "parents", "mesh")
 
-    def __init__(self, traces: Trace, log_weights, log_ml_est, parents):
+    def __init__(self, traces: Trace, log_weights, log_ml_est, parents,
+                 mesh=None):
         self.traces = traces
         self.log_weights = log_weights
         self.log_ml_est = log_ml_est
         self.parents = parents
+        self.mesh = mesh
 
-    # tree protocol (core/tree.py): the JAX package's leaf order
+    # tree protocol (core/tree.py): the JAX package's leaf order; the mesh
+    # is static structure
     def tree_flatten(self):
         return ((self.traces, self.log_weights, self.log_ml_est,
-                 self.parents), None)
+                 self.parents), self.mesh)
 
     @classmethod
-    def tree_unflatten(cls, _, children):
-        return cls(*children)
+    def tree_unflatten(cls, mesh, children):
+        return cls(*children, mesh=mesh)
 
     @property
     def n_particles(self) -> int:
@@ -61,6 +67,9 @@ class ParticleFilterState:
         return self.view(idxs)
 
     def __repr__(self):
+        if self.mesh is not None:
+            return (f"ParticleFilterState(n={self.n_particles} of "
+                    f"{num_particles(self)}, {self.mesh!r})")
         return f"ParticleFilterState(n={self.n_particles})"
 
 
@@ -105,7 +114,7 @@ class ParticleFilterSubState:
               else src.log_weights.index_copy(0, idx, log_weights))
         pr = (src.parents if parents is None
               else src.parents.index_copy(0, idx, parents.to(torch.int32)))
-        return ParticleFilterState(new_traces, lw, src.log_ml_est, pr)
+        return src.replace(traces=new_traces, log_weights=lw, parents=pr)
 
     def __repr__(self):
         return f"ParticleFilterSubState(n={self.n_particles})"
@@ -139,22 +148,51 @@ def get_parents(state):
     return state.parents
 
 
+def _mesh(state):
+    """The mesh a full state is sharded over, or None."""
+    return getattr(state, "mesh", None)
+
+
 def num_particles(state):
-    return state.n_particles
+    """The particle count: of every rank's block for a sharded state."""
+    mesh = _mesh(state)
+    return state.n_particles * (1 if mesh is None else mesh.size)
+
+
+def _logsumexp(state):
+    """log Σ exp of the log weights, over every rank for a sharded state
+    (one all-gather)."""
+    mesh = _mesh(state)
+    if mesh is None:
+        return logsumexp(state.log_weights)
+    from ..parallel import mesh as pm
+    return pm.logsumexp(state.log_weights, mesh)
 
 
 def get_log_norm_weights(state):
-    """Normalized log weights."""
-    return lognorm(state.log_weights)
+    """Normalized log weights (this rank's block of them, normalized over
+    every rank, for a sharded state)."""
+    if _mesh(state) is None:
+        return lognorm(state.log_weights)
+    return state.log_weights - _logsumexp(state)
 
 
 def get_norm_weights(state):
-    return softmax(state.log_weights)
+    if _mesh(state) is None:
+        return softmax(state.log_weights)
+    return torch.exp(get_log_norm_weights(state))
 
 
 def effective_sample_size(state):
-    """ESS = 1/Σ ŵ² (a device scalar)."""
-    return ess_from_log_weights(state.log_weights)
+    """ESS = 1/Σ ŵ² (a device scalar). On a sharded state, the global ESS
+    — every rank gets the same value, so every rank takes the same
+    branch on it (two all-gathers of two scalars per rank)."""
+    mesh = _mesh(state)
+    if mesh is None:
+        return ess_from_log_weights(state.log_weights)
+    from ..parallel import mesh as pm
+    lw = get_log_norm_weights(state)
+    return torch.exp(-pm.logsumexp(2.0 * lw, mesh))
 
 
 get_ess = effective_sample_size
@@ -162,13 +200,15 @@ get_ess = effective_sample_size
 
 def log_ml_estimate(state):
     """Full state: ``log_ml_est + logsumexp(w) − log n`` (Gen's
-    estimator). Sub-state: the source's ``log_ml_est`` plus the block's
-    ``logsumexp(w_block) − log n_block``."""
+    estimator), over every rank for a sharded state. Sub-state: the
+    source's ``log_ml_est`` plus the block's ``logsumexp(w_block) − log
+    n_block``."""
     lw = state.log_weights
-    base = (state.source.log_ml_est
-            if isinstance(state, ParticleFilterSubState)
-            else state.log_ml_est)
-    return base + logsumexp(lw) - log_float32(state.n_particles, lw.device)
+    if isinstance(state, ParticleFilterSubState):
+        return (state.source.log_ml_est + logsumexp(lw)
+                - log_float32(state.n_particles, lw.device))
+    return (state.log_ml_est + _logsumexp(state)
+            - log_float32(num_particles(state), lw.device))
 
 
 get_lml_est = log_ml_estimate

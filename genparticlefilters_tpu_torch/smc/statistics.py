@@ -3,7 +3,10 @@ or a function of several addresses.
 
 ``mean`` and ``var`` are reductions over the particle axis on the device;
 ``proportionmap`` is a host-side diagnostic (a dict keyed by the unique
-values, like a weighted countmap).
+values, like a weighted countmap). On a state sharded over a particle mesh
+each rank reduces its block with the globally normalized weights, and the
+blocks' sums are all-gathered and added (the dicts merged), so every rank
+gets the statistic of the whole particle set.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 from ..core.tree import tree_flatten, tree_unflatten, flatten_up_to, tree_map
-from .state import get_norm_weights, batched_choice
+from .state import get_norm_weights, batched_choice, _mesh
 
 __all__ = ["mean", "var", "proportionmap"]
 
@@ -56,10 +59,16 @@ def _wsum_leaf(w, x):
     return torch.sum(w.reshape(w.shape + (1,) * (x.dim() - 1)) * x, dim=0)
 
 
-def _wsum(w, x):
+def _wsum(w, x, mesh=None):
     """Weighted sum over the particle axis, mapped over tree leaves (a
-    tuple-valued return value gives a tuple of means)."""
-    return tree_map(lambda v: _wsum_leaf(w, v), x)
+    tuple-valued return value gives a tuple of means), summed over every
+    rank's block when ``mesh`` is given."""
+    out = tree_map(lambda v: _wsum_leaf(w, v), x)
+    if mesh is None:
+        return out
+    from ..parallel import mesh as pm
+    return tree_map(lambda v: torch.sum(pm.all_gather(v[None], mesh), 0),
+                    out)
 
 
 def mean(state, addr=None, fn: Callable | None = None, *addrs):
@@ -68,7 +77,7 @@ def mean(state, addr=None, fn: Callable | None = None, *addrs):
     and ``addrs``; float32 device tensors."""
     addr, fn = _args(addr, fn)
     w = get_norm_weights(state)
-    return _wsum(w, _values(state, addr, fn, addrs))
+    return _wsum(w, _values(state, addr, fn, addrs), _mesh(state))
 
 
 def var(state, addr=None, fn: Callable | None = None, *addrs):
@@ -77,10 +86,11 @@ def var(state, addr=None, fn: Callable | None = None, *addrs):
     addr, fn = _args(addr, fn)
     w = get_norm_weights(state)
     vals = _values(state, addr, fn, addrs)
-    mu = _wsum(w, vals)
-    return tree_map(
-        lambda v, m: _wsum_leaf(w, (torch.as_tensor(v).to(torch.float32)
-                                    - m) ** 2), vals, mu)
+    mesh = _mesh(state)
+    mu = _wsum(w, vals, mesh)
+    return _wsum(w, tree_map(
+        lambda v, m: (torch.as_tensor(v).to(torch.float32) - m) ** 2,
+        vals, mu), mesh)
 
 
 def proportionmap(state, addr=None, fn: Callable | None = None, *addrs):
@@ -98,4 +108,14 @@ def proportionmap(state, addr=None, fn: Callable | None = None, *addrs):
     for v, wi in zip(vals.tolist(), w.tolist()):
         key = tuple(v) if isinstance(v, list) else v
         out[key] = out.get(key, 0.0) + wi
-    return out
+    mesh = _mesh(state)
+    if mesh is None:
+        return out
+    import torch.distributed as dist
+    parts = [None] * mesh.size
+    dist.all_gather_object(parts, out, group=mesh.group)
+    merged = {}
+    for part in parts:
+        for key, wi in part.items():
+            merged[key] = merged.get(key, 0.0) + wi
+    return merged

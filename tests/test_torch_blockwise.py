@@ -215,12 +215,28 @@ def test_rotate_and_shuffle_match_jax(op):
         float(jdist.block_log_weight_imbalance(jst, K)), atol=1e-5)
 
 
-def test_errors():
+def test_errors(tmp_path):
     _, st = _mot_pair(n=96)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="ParticleMesh"):
         tg.pf_resample_blockwise(None, st, 4, mesh=object())
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="ParticleMesh"):
         tg.pf_rotate_blocks(st, 4, mesh=object())
+    # a mesh whose size is not n_blocks (one rank, four blocks)
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        mesh = tg.parallel.particle_mesh()
+        sh = tg.parallel.shard_state(st, mesh)
+        for op in (lambda: tg.pf_rotate_blocks(sh, 4, mesh=mesh),
+                   lambda: tg.pf_shuffle_blocks(sh, 4, mesh=mesh),
+                   lambda: tg.pf_resample_blockwise(None, sh, 4, mesh=mesh)):
+            with pytest.raises(ValueError, match="1 devices but n_blocks=4"):
+                op()
+        with pytest.raises(ValueError, match="not sharded over this mesh"):
+            tg.pf_rotate_blocks(st, 1, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="divisible"):
         tg.pf_resample_blockwise(None, st, 5)
     with pytest.raises(ValueError, match="equal splits"):

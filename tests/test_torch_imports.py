@@ -32,6 +32,7 @@ def test_every_module_imports():
                                                    pkg.__name__ + ".")]
     for name in ("ops.fused_gather", "ops.gather", "smc.resize",
                  "models.multi_object", "parallel", "parallel.distributed",
+                 "parallel.mesh",
                  "smc.translate", "utils.stratification",
                  "models.stochastic_volatility", "models.tempered",
                  "utils.device", "utils.checkpoint", "utils.profiling",
@@ -42,11 +43,7 @@ def test_every_module_imports():
 
 
 #: the JAX package's public names the port leaves out, with the reason
-NOT_PORTED = {
-    name: "the mesh= half of the parallel layer (a jax.sharding mesh) "
-          "waits for the next slice"
-    for name in ("particle_mesh", "shard_state", "state_sharding",
-                 "state_pspecs", "replicated_sharding")}
+NOT_PORTED = {}
 
 
 def test_every_public_name_of_the_jax_package_is_ported():
@@ -56,6 +53,7 @@ def test_every_public_name_of_the_jax_package_is_ported():
     import genparticlefilters_tpu.config as jcfg
     import genparticlefilters_tpu.core as jcore
     import genparticlefilters_tpu.core.batching as jbatch
+    import genparticlefilters_tpu.parallel as jpar
     import genparticlefilters_tpu.smc as jsmc
     import genparticlefilters_tpu.utils as jutils
     import genparticlefilters_tpu_torch as tg
@@ -64,12 +62,16 @@ def test_every_public_name_of_the_jax_package_is_ported():
     import genparticlefilters_tpu_torch.utils as tutils
     pairs = [(jcore.__all__, tg.core), (jsmc.__all__, tg.smc),
              (jbatch.__all__, tbatch), (jutils.__all__, tutils),
+             (jpar.__all__, tg.parallel),
              ([n for n in vars(jcfg) if not n.startswith("_") and n not in (
                  "annotations", "contextlib", "clustered_gather",
                  "use_clustered_gather")], tcfg)]
     missing = [n for names, mod in pairs for n in names
                if not hasattr(mod, n) and n not in NOT_PORTED]
     assert not missing, missing
+    # the parallel layer exports the JAX package's names, and only those
+    assert sorted(tg.parallel.__all__) == sorted(jpar.__all__)
+    assert tg.parallel.mesh.PARTICLE_AXIS == "p"
     # the config names JAX keeps for its Pallas path are left out on
     # purpose (README): the port's gathers pick their route by device
     assert not hasattr(tcfg, "use_clustered_gather")
@@ -80,8 +82,8 @@ def test_new_modules_import_without_jax_or_triton():
     utils/stratification, utils/device, utils/checkpoint,
     utils/profiling, config, core/batching, core/gfi and core/combinators
     (with MapCombinator), interop, the multi-object, stochastic-volatility
-    and tempered models and parallel import in a fresh interpreter where
-    jax and triton cannot be imported."""
+    and tempered models and parallel (with the mesh) import in a fresh
+    interpreter where jax and triton cannot be imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -97,6 +99,10 @@ def test_new_modules_import_without_jax_or_triton():
         "import genparticlefilters_tpu_torch.smc.translate\n"
         "import genparticlefilters_tpu_torch.utils.stratification\n"
         "import genparticlefilters_tpu_torch.parallel\n"
+        "import genparticlefilters_tpu_torch.parallel.mesh\n"
+        "from genparticlefilters_tpu_torch.parallel import (particle_mesh,\n"
+        "    shard_state, state_sharding, state_pspecs,\n"
+        "    replicated_sharding)\n"
         "import genparticlefilters_tpu_torch.core.combinators\n"
         "import genparticlefilters_tpu_torch.core.gfi\n"
         "import genparticlefilters_tpu_torch.smc.update\n"

@@ -9,7 +9,9 @@ stochastic_volatility.py) against the JAX package.
 - A JAX filter state carried across by ``interop`` and back is bit-equal,
   and the port's own filter state has JAX's leaf shapes and dtypes.
 - The filter's LML at N=4000, T=20 over 4 seeds against JAX's over 4
-  seeds: the means agree within 6·(combined stderr) + 0.05.
+  seeds: the means agree within 6·(combined stderr) + 0.05, with the
+  window-2 rejuvenation, and with the port's full re-scan regenerate
+  (``rejuv_window=None``, against JAX's window-2 filter: JAX's own fails).
 """
 
 import math
@@ -91,15 +93,35 @@ def test_interop_round_trip_and_leaf_layout():
 
 
 def test_filter_lml_matches_jax_over_seeds():
+    _lml_gate(2)
+
+
+def test_full_rescan_rejuvenation_lml_matches_jax():
+    """``rejuv_window=None``: every move is the port's full re-scan
+    regenerate; its LML meets JAX's window-2 filter (the same estimand)
+    within the same gate. JAX's own ``rejuv_window=None`` filter fails: the
+    two branches of its ESS ``lax.cond`` differ in structure, the full
+    re-scan's trace against the resample-free one (a pinned reference
+    fault)."""
+    with pytest.raises(TypeError, match="same pytree structure"):
+        jsv.sv_particle_filter(jr.key(0), jnp.asarray(_y()), 64, T, P,
+                               rejuv_window=None)
+    _lml_gate(None, jax_window=2)
+
+
+def _lml_gate(window, jax_window=None):
     n, seeds = 4000, 4
     y = _y()
-    jf = jax.jit(jsv.sv_particle_filter, static_argnums=(2, 3))
+    jw = window if jax_window is None else jax_window
+    jf = jax.jit(jsv.sv_particle_filter, static_argnums=(2, 3, 6, 7))
     jl = [float(jg.log_ml_estimate(jf(jr.key(10 + s), jnp.asarray(y), n, T,
-                                      P))) for s in range(seeds)]
+                                      P, 0.5, 1, jw)))
+          for s in range(seeds)]
     tl = []
     for s in range(seeds):
         st = tsv.sv_particle_filter(torch.Generator().manual_seed(20 + s),
-                                    torch.from_numpy(y), n, T, TP)
+                                    torch.from_numpy(y), n, T, TP,
+                                    rejuv_window=window)
         assert bool(torch.isfinite(st.log_weights).all())
         ess = float(tg.effective_sample_size(st))
         assert 1.0 <= ess <= n
