@@ -6,7 +6,9 @@ Run from the repository root:
 Phases (each prints summary lines; any failure raises, so the exit code is
 non-zero and no result line is printed):
 
-1. environment: torch / CUDA / nvcc / triton versions and the card;
+1. environment: torch / CUDA / nvcc / triton versions, the card, its
+   driver, and whether PyTorch has CUDA conditional nodes
+   (``CUDAGraph.begin_capture_to_if_node``);
 2. build: compile the kernels for sm_90a, one nvcc per source, side by
    side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu), G3
    (csrc/gather_parents.cu, column and row mode) and G4
@@ -116,6 +118,27 @@ non-zero and no result line is printed):
    every leaf bit-equal to the same steps with mesh=None from the same
    seed, each blockwise resample without a collective or a
    torch.distributed call;
+4x. (run last, after phases 5 and 6) the compiled drivers
+   (smc/capture.py): each filter run captured once
+   as a CUDA graph, its ESS branch a device select (the branch always
+   runs, its leaves chosen by torch.where; PyTorch 2.11 has no CUDA
+   conditional nodes), and
+   replayed: the headline at N=100K and 1M, T=10, systematic (G1 a graph
+   node) and residual (G2 count + G1), config 2 (the linear-Gaussian
+   filter, N=10K, T=8), 4k SV (99 branches), 4l tempered (49 branches)
+   and config 5's filter (MOT K=4, N=1M, T=10, no resizes). Each cell:
+   (a) with every branch forced (ess_frac 1.5)
+   the replay from a fresh seed bit-equal, leaf for leaf, to the eager run
+   from that seed, and two replays from one seed to each other; at the
+   default ess_frac (f) the capture's time and pool memory and the
+   kernels captured as graph nodes, (b) the eager cell's gate on replays
+   (the registered generator reseeded before each): exact enumeration over
+   4 seeds, the Kalman filter, the bootstrap LML, the quadrature log Z,
+   config 5's posterior means; (c) 0 host syncs per replay (the eager
+   run's printed beside); (e) ms/run of the replay and of the eager run in
+   turns, median of 5; (d) one profiled replay: its kernels, device busy
+   ms and idle share, failing where it shows no device time or no G1 (G2)
+   kernel. Every cell runs before a failure is raised;
 5. timing: each kernel against its plain version and, where one PyTorch
    call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
@@ -176,6 +199,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -278,11 +302,16 @@ def phase_environment():
         triton_v = "not installed"
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     nvcc_v = _run([nvcc, "--version"]).splitlines()
+    driver = _run(["nvidia-smi", "--query-gpu=driver_version",
+                   "--format=csv,noheader"]).splitlines()
     print(f"[1 env] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, torch.version.cuda {torch.version.cuda}, "
           f"triton {triton_v}, nvcc: {nvcc_v[-1] if nvcc_v else '?'}; "
           f"card: {torch.cuda.get_device_name(0)} x "
-          f"{torch.cuda.device_count()}; nvidia-smi: {_card_line()}")
+          f"{torch.cuda.device_count()}; nvidia-smi: {_card_line()}; "
+          f"driver {driver[0].strip() if driver else '?'}; "
+          f"torch.cuda.CUDAGraph has begin_capture_to_if_node: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
 
 
 def phase_build():
@@ -825,39 +854,55 @@ def _substate_path(state):
     return total
 
 
+N_LG, T_LG = 10_000, 8          # config 2 (BASELINE.json)
+
+
+def _lg_setup():
+    """(LGParams, y [T_LG] drawn from the model, the Kalman filter's
+    (means, variances, log Z) of y)."""
+    from genparticlefilters_tpu_torch.models.linear_gaussian import (
+        LGParams, synthesize_lg_data, kalman_filter)
+    p = LGParams()
+    y = synthesize_lg_data(_gen(0), T_LG, p)
+    return p, y, kalman_filter(y.cpu().numpy(), p)
+
+
+def _lg_gate(label, sts, kalman):
+    """Four filter states against the Kalman filter, with the tolerances
+    of tests/test_models.py: the mean and LML of the first three, the
+    variance of the fourth."""
+    import genparticlefilters_tpu_torch as g
+    mus, vars_, lml_exact = kalman
+    sd = math.sqrt(float(vars_[-1]))
+    est = np.mean([float(g.mean(s, (T_LG - 1, "x"))) for s in sts[:3]])
+    lml = np.mean([float(g.log_ml_estimate(s)) for s in sts[:3]])
+    var = float(g.var(sts[3], (T_LG - 1, "x")))
+    if (abs(est - mus[-1]) >= 0.05 * sd + 0.02
+            or abs(lml - lml_exact) >= 0.05
+            or abs(var - vars_[-1]) >= 0.2 * vars_[-1]):
+        raise AssertionError(f"{label}: mean {est} vs {mus[-1]}, LML {lml} "
+                             f"vs {lml_exact}, var {var} vs {vars_[-1]}")
+    print(f"[{label}] N={N_LG} T={T_LG}: filtering mean {est:.4f} vs "
+          f"Kalman {mus[-1]:.4f} (limit {0.05 * sd + 0.02:.4f}), LML "
+          f"{lml:.4f} vs {lml_exact:.4f} (limit 0.05), var {var:.4f} vs "
+          f"{vars_[-1]:.4f} (rtol 0.2)")
+
+
 def _lg_path():
     """The linear-Gaussian filter (BASELINE config 2) against the Kalman
-    filter, with the tolerances of tests/test_models.py."""
-    import genparticlefilters_tpu_torch as g
+    filter."""
     from genparticlefilters_tpu_torch.models.linear_gaussian import (
-        LGParams, synthesize_lg_data, kalman_filter, lgssm_particle_filter)
-    p, T, n = LGParams(), 8, 10_000
-    y = synthesize_lg_data(torch.Generator(device="cuda").manual_seed(0), T,
-                           p)
-    mus, vars_, lml_exact = kalman_filter(y.cpu().numpy(), p)
-    sd = math.sqrt(float(vars_[-1]))
+        lgssm_particle_filter)
+    p, y, kalman = _lg_setup()
     total = {k: 0 for k in KERNELS}
     for method in ("systematic", "stratified"):
         def run():
-            return [lgssm_particle_filter(
-                torch.Generator(device="cuda").manual_seed(10 + s), y, n, T,
-                p, method) for s in range(4)]
+            return [lgssm_particle_filter(_gen(10 + s), y, N_LG, T_LG, p,
+                                          method) for s in range(4)]
         sts, counts = _path(f"4e linear-Gaussian {method}", run, ())
         for k in total:
             total[k] += counts[k]
-        est = np.mean([float(g.mean(s, (T - 1, "x"))) for s in sts[:3]])
-        lml = np.mean([float(g.log_ml_estimate(s)) for s in sts[:3]])
-        var = float(g.var(sts[3], (T - 1, "x")))
-        if (abs(est - mus[-1]) >= 0.05 * sd + 0.02
-                or abs(lml - lml_exact) >= 0.05
-                or abs(var - vars_[-1]) >= 0.2 * vars_[-1]):
-            raise AssertionError(f"4e {method}: mean {est} vs {mus[-1]}, "
-                                 f"LML {lml} vs {lml_exact}, var {var} vs "
-                                 f"{vars_[-1]}")
-        print(f"[4e {method}] N={n} T={T}: filtering mean {est:.4f} vs "
-              f"Kalman {mus[-1]:.4f} (limit {0.05 * sd + 0.02:.4f}), LML "
-              f"{lml:.4f} vs {lml_exact:.4f} (limit 0.05), var {var:.4f} vs "
-              f"{vars_[-1]:.4f} (rtol 0.2)")
+        _lg_gate(f"4e {method}", sts, kalman)
     return total
 
 
@@ -1293,9 +1338,26 @@ def _sv_path():
             and var > 0):
         raise AssertionError(f"4k: weights not finite, ESS {ess} or "
                              f"var(h_T-1) {var}")
+    print(f"[4k config 3] N={N_SV} T={T_SV}: ESS {ess:.1f}, var(h_T-1) "
+          f"{var:.4f}")
+    _sv_lml_gate("4k config 3", run, y, p)
+    return counts
+
+
+_BOOTSTRAP = {}      # seed -> the bootstrap reference's LML on the 4k data
+
+
+def _sv_lml_gate(label, run, y, p):
+    """The mean LML of 4 seeds of ``run`` against the independent
+    bootstrap filter at N=1M (4 seeds, computed once) within
+    6·(combined stderr) + 0.05, every seed within 1 nat."""
+    import genparticlefilters_tpu_torch as g
     lmls = [float(g.log_ml_estimate(run(_gen(810 + s), y, N_SV)))
             for s in range(4)]
-    refs = [_sv_bootstrap_lml(y, N_SV_REF, p, 820 + s) for s in range(4)]
+    for s in range(4):
+        if 820 + s not in _BOOTSTRAP:
+            _BOOTSTRAP[820 + s] = _sv_bootstrap_lml(y, N_SV_REF, p, 820 + s)
+    refs = [_BOOTSTRAP[820 + s] for s in range(4)]
     se = math.sqrt(np.var(lmls) / 4 + np.var(refs) / 4)
     lim = 6 * se + 0.05
     diff = abs(np.mean(lmls) - np.mean(refs))
@@ -1304,14 +1366,12 @@ def _sv_path():
     # tens of nats high)
     far = max(abs(x - np.mean(refs)) for x in lmls)
     if diff >= lim or far >= 1.0:
-        raise AssertionError(f"4k: LML {lmls} vs bootstrap {refs}")
-    print(f"[4k config 3] N={N_SV} T={T_SV}: ESS {ess:.1f}, var(h_T-1) "
-          f"{var:.4f}; mean LML of 4 seeds {np.mean(lmls):.4f} (sd "
-          f"{np.std(lmls):.4f}) vs an independent bootstrap filter at "
-          f"N={N_SV_REF} {np.mean(refs):.4f} (sd {np.std(refs):.4f}): |diff| "
-          f"{diff:.4f} (limit 6*stderr+0.05 = {lim:.4f}), farthest seed "
-          f"{far:.4f} (limit 1)")
-    return counts
+        raise AssertionError(f"{label}: LML {lmls} vs bootstrap {refs}")
+    print(f"[{label}] N={N_SV} T={T_SV}: mean LML of 4 seeds "
+          f"{np.mean(lmls):.4f} (sd {np.std(lmls):.4f}) vs an independent "
+          f"bootstrap filter at N={N_SV_REF} {np.mean(refs):.4f} (sd "
+          f"{np.std(refs):.4f}): |diff| {diff:.4f} (limit 6*stderr+0.05 = "
+          f"{lim:.4f}), farthest seed {far:.4f} (limit 1)")
 
 
 def _tm_run(gen, _y, n):
@@ -2608,6 +2668,227 @@ def _nested_paths():
     return seen
 
 
+# ---------------------------------------------------------------------------
+# Path 4x: the compiled drivers, each filter run one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+X_FORCE = 1.5        # an ess_frac above 1: ESS < 1.5·N at every step, so
+#                      every ESS branch fires
+X_KERNELS = {G1: "stairs_gather_kernel", G2: "stairs_gather_u_kernel"}
+
+
+def _reseeded(run, gen, take=lambda out: out):
+    """``(gen_, y, n) -> state``: the captured ``run`` replayed with its
+    registered generator ``gen`` reseeded to ``gen_``'s seed (the form
+    the eager gates call)."""
+    def replay(gen_, _y, _n):
+        gen.manual_seed(gen_.initial_seed())
+        return take(run())
+    return replay
+
+
+def _bit_equal(a, b):
+    """None where every leaf of ``a`` and ``b`` is bit-equal, else the
+    first leaf that differs."""
+    from genparticlefilters_tpu_torch.core.tree import tree_flatten
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    if len(la) != len(lb):
+        return f"{len(la)} leaves against {len(lb)}"
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                return f"leaf {i} ({x.dtype} {tuple(x.shape)})"
+        elif x != y:
+            return f"leaf {i} ({x!r} against {y!r})"
+    return None
+
+
+def _x_forced(label, fn, args, kw, seed=970):
+    """(a): with every branch forced, the replay from a fresh seed against
+    the eager run from the same seed, leaf for leaf, and two replays from
+    one seed against each other. Returns what differed, or None."""
+    from genparticlefilters_tpu_torch import capture
+    kw = dict(kw, ess_frac=X_FORCE)
+    gen = _gen(0)
+    run = capture(fn, gen, *args, **kw)
+    eager = fn(_gen(seed), *args, **kw)
+    gen.manual_seed(seed)
+    first = run()
+    gen.manual_seed(seed)
+    second = run()
+    torch.cuda.synchronize()
+    vs_eager, vs_replay = _bit_equal(first, eager), _bit_equal(first, second)
+    print(f"[4x {label} (a)] every branch forced (ess_frac {X_FORCE}), seed "
+          f"{seed}: replay against eager "
+          f"{'bit-equal' if vs_eager is None else 'differs at ' + vs_eager}"
+          f"; two replays "
+          f"{'bit-equal' if vs_replay is None else 'differ at ' + vs_replay}")
+    del run
+    if vs_eager is not None or vs_replay is not None:
+        return (f"4x {label} (a): replay against eager {vs_eager}, replay "
+                f"against replay {vs_replay}")
+    return None
+
+
+def _x_profile(run):
+    """One replay under torch.profiler: (kernels, device busy ms, kernel
+    names seen)."""
+    from torch.profiler import profile, ProfilerActivity
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda
+            and not e.key.startswith(SPANS)]
+    return (sum(e.count for e in kern),
+            sum(e.self_device_time_total for e in kern) / 1e3,
+            {e.key for e in kern})
+
+
+def _x_turns(fns, reps=5):
+    """``fns`` ({label: fn}) timed in turns on the host clock, each run
+    ending in a synchronize: {label: (median, min, max)} ms of ``reps``
+    runs after one warm-up."""
+    times = {k: [] for k in fns}
+    for _ in range(reps + 1):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: (statistics.median(v[1:]), min(v[1:]), max(v[1:]))
+            for k, v in times.items()}
+
+
+def _x_cell(label, fn, args, kw, need, gate, card, take=lambda out: out):
+    """One 4x cell: (a) forced, then at the default ess_frac the capture
+    (its time, pool memory and the kernels captured as graph nodes), (b)
+    the eager cell's gate on replays, (c) host syncs per replay against
+    the eager run's, (e) ms/run of the replay and the eager run in turns,
+    (d) one profiled replay, which must show device time and each kernel
+    of ``need``. Returns the launch counts at capture."""
+    from genparticlefilters_tpu_torch import capture
+    forced = _x_forced(label, fn, args, kw)
+    gen = _gen(1)
+    _reset_counts()
+    run = capture(fn, gen, *args, **kw)
+    torch.cuda.synchronize()
+    counts = _counts()
+    missing = [k for k in need if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"4x {label}: {missing} not captured")
+    print(f"[4x {label} (f)] captured in {run.capture_seconds * 1e3:.1f} ms "
+          f"(warm-up not counted); pool {run.pool_bytes / 2**20:.1f} MiB "
+          f"past what was allocated before (torch.cuda.max_memory_allocated);"
+          f" kernel launches in capture's warm-up and capture, half each "
+          f"(one program; the capture's are graph nodes): {_short(counts)}")
+    gate(_reseeded(run, gen, take))
+    _, syncs = _synced(run)
+    _, eager_syncs = _synced(lambda: fn(_gen(401), *args, **kw))
+    if syncs:
+        raise AssertionError(f"4x {label}: {len(syncs)} host syncs in one "
+                             f"replay: {syncs[:6]}")
+    wall = _x_turns({"replay": run, "eager": lambda: fn(_gen(402), *args,
+                                                        **kw)})
+    kernels, busy, names = _x_profile(run)
+    # a profiler key is the demangled signature: "stairs_gather_kernel(...)"
+    missing = [k for k in need
+               if not any(n.startswith(X_KERNELS[k] + "(") for n in names)]
+    rep, eag = wall["replay"], wall["eager"]
+    print(f"[4x {label}] (c) host syncs per replay {len(syncs)}, eager "
+          f"{len(eager_syncs)}; (e) replay {rep[0]:.3f} ms/run (min "
+          f"{rep[1]:.3f}, max {rep[2]:.3f}), eager {eag[0]:.3f} (min "
+          f"{eag[1]:.3f}, max {eag[2]:.3f}), median of 5 after a warm-up, in "
+          f"turns: {eag[0] / rep[0]:.2f}x; (d) one profiled replay: "
+          f"{kernels} kernels, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / rep[0]:.3f}; card {card}")
+    if busy <= 0 or missing:
+        raise AssertionError(f"4x {label}: the profiled replay shows "
+                             f"{kernels} kernels, {busy:.3f} ms busy, no "
+                             f"{missing} kernel: {sorted(names)[:12]}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    if forced is not None:
+        raise AssertionError(forced)
+    return counts
+
+
+def _mot_gate(label, replay, y):
+    """Four seeds of config 5's filter: each posterior mean at the last
+    step within 3 observation sds of the last observation."""
+    errs = [_mot_posterior_check(label, replay(_gen(520 + s), y, N_C5), y,
+                                 T_C5) for s in range(4)]
+    print(f"[{label}] 4 seeds at N={N_C5} T={T_C5}: posterior mean max "
+          f"|x - y_last| {max(errs):.4f} (limit 1.5)")
+
+
+def _captured_paths(y_obs):
+    """(x): the headline (N=100K and 1M, systematic and residual), config 2,
+    4k SV, 4l tempered and config 5's filter, each run captured once and
+    replayed; returns the launch counts at capture of each."""
+    from torch.profiler import profile, ProfilerActivity
+    from genparticlefilters_tpu_torch.models.object_motion import (
+        object_motion_filter_impl)
+    from genparticlefilters_tpu_torch.models.tempered import run_tempered_smc
+    from genparticlefilters_tpu_torch.models.stochastic_volatility import (
+        sv_particle_filter)
+    from genparticlefilters_tpu_torch.models.linear_gaussian import (
+        lgssm_particle_filter)
+    from genparticlefilters_tpu_torch.models.multi_object import (
+        MOTParams, mot_particle_filter)
+    # the profiler records a graph's kernel nodes only where it had started
+    # in this process before the graph was captured: start it once first
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    card = _card_line()
+    p, y, _ = _sv_setup()
+    p_lg, y_lg, kalman = _lg_setup()
+    y_mot = _mot_data(T_C5)
+    cells = []
+    for n in (N_MAIN, 1_000_000):
+        for method, need in (("systematic", (G1,)), ("residual", (G1, G2))):
+            label = f"headline {method} N={n} T={T_MAIN}"
+            cells.append((label, object_motion_filter_impl, (y_obs, n, T_MAIN),
+                          {"resample_method": method}, need,
+                          lambda replay, n=n, label=label: _posterior_check(
+                              replay, y_obs, n, f"4x {label}"), {}))
+    cells.append((f"config 2 N={N_LG} T={T_LG}", lgssm_particle_filter,
+                  (y_lg, N_LG, T_LG, p_lg), {"resample_method": "systematic"},
+                  (G1,), lambda replay: _lg_gate(
+                      "4x config 2", [replay(_gen(10 + s), y_lg, N_LG)
+                                      for s in range(4)], kalman), {}))
+    label = f"4k SV N={N_SV} T={T_SV}"
+    cells.append((label, sv_particle_filter, (y, N_SV, T_SV, p),
+                  {"rejuv_window": 2}, (G1,),
+                  lambda replay: _sv_lml_gate("4x 4k SV", replay, y, p), {}))
+    label = f"4l tempered N={N_TM} K={K_TM}"
+    cells.append((label, run_tempered_smc, (N_TM,),
+                  {"n_temps": K_TM, "rejuv_iters": 2}, (G1,),
+                  lambda replay: _tm_lml_gate("4x 4l tempered", replay, 840),
+                  {"take": lambda out: out[0]}))
+    cells.append((f"config 5 N={N_C5} T={T_C5}", mot_particle_filter,
+                  (y_mot, N_C5, T_C5, MOTParams()),
+                  {"resample_method": "systematic"}, (G1,),
+                  lambda replay: _mot_gate("4x config 5", replay, y_mot), {}))
+    # every cell runs and prints what it measured before any failure is
+    # raised: the failures are listed together at the end
+    seen, failed = {}, []
+    for label, fn, args, kw, need, gate, extra in cells:
+        try:
+            seen[f"4x {label}"] = _x_cell(label, fn, args, kw, need, gate,
+                                          card, **extra)
+        except Exception as e:              # re-raised below, all together
+            print(f"[4x {label}] FAILED:\n{traceback.format_exc()}")
+            failed.append(f"{label}: {type(e).__name__}: {e}")
+    if failed:
+        raise AssertionError("4x: " + " | ".join(failed))
+    return seen
+
+
 def _line_step_bodies(card):
     """The Unfold step bodies one run of each 4o route executes: route A's
     full re-scans grow with t (O(T²) per run), route B's extension runs
@@ -3057,31 +3338,52 @@ def _guard_timing(card, y_obs):
     total, top = _sync_count(run, y_obs, N_MAIN)
     if total > MAX_SYNCS:
         raise AssertionError(f"guard cold: {total} host syncs: {top}")
-    kernels = {}
+    kernels, alone = {}, {}
     for on in (True, False):
-        batching._GUARD_CACHE.clear()
         with config.use_check_batched_layout(on):
-            kernels[on] = _profiled_kernels(run, y_obs, N_MAIN)
+            kernels[on] = _profiled_kernels(
+                run, y_obs, N_MAIN, before=batching._GUARD_CACHE.clear)
+            batching._GUARD_CACHE.clear()
+            alone[on] = sum(_profiled_kernels(run, y_obs, N_MAIN,
+                                              warm=False).values())
     if kernels[True] != kernels[False]:
-        raise AssertionError(f"guard: {kernels[True]} kernels guarded, "
-                             f"{kernels[False]} not")
+        diff = {k: (kernels[True][k], kernels[False][k])
+                for k in kernels[True] | kernels[False]
+                if kernels[True][k] != kernels[False][k]}
+        raise AssertionError(f"guard: {kernels[True].total()} kernels "
+                             f"guarded, {kernels[False].total()} not; by "
+                             f"name (guarded, not): {diff}")
     print(f"[5 guard] a cold guarded run (its cache emptied) {cold:.3f} "
           f"ms; {total} synchronizing calls (limit {MAX_SYNCS}); "
-          f"{kernels[True]} kernels guarded (cold) and {kernels[False]} "
-          f"unguarded; card {card}")
+          f"{kernels[True].total()} kernels guarded (cold) and "
+          f"{kernels[False].total()} unguarded, each kernel name the same "
+          f"count (profiled after a profiler warm-up run); profiled "
+          f"alone, {alone[True]} guarded and {alone[False]} unguarded; card "
+          f"{card}")
 
 
-def _profiled_kernels(run, y, n):
-    """Device kernels launched in one profiled run."""
-    from torch.profiler import profile, ProfilerActivity
-    gen = torch.Generator(device="cuda").manual_seed(400)
+def _profiled_kernels(run, y, n, before=lambda: None, warm=True):
+    """Device kernels by name launched in one profiled run (seed 400).
+    With ``warm`` the profiler records the second of two runs, after a
+    warm-up step; ``before()`` runs ahead of each run."""
+    from torch.profiler import profile, ProfilerActivity, schedule
+    steps = 2 if warm else 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=(schedule(wait=0, warmup=1, active=1) if warm
+                           else None),
                  acc_events=True) as prof:
-        run(gen, y, n)
-        torch.cuda.synchronize()
+        for _ in range(steps):
+            before()
+            run(torch.Generator(device="cuda").manual_seed(400), y, n)
+            torch.cuda.synchronize()
+            if warm:
+                prof.step()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == cuda and not e.key.startswith(SPANS))
+    counts = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == cuda and not e.key.startswith(SPANS):
+            counts[e.key] += e.count
+    return counts
 
 
 def _pp_rows(y_obs):
@@ -3365,6 +3667,10 @@ def main():
     kern_ms = phase_timing(y_obs, card)
     if args.against:
         phase_against(args.against, card)
+    # last: a capture registers the default generator with its graph and
+    # the profiler then traces graph replays, so 4x runs after every count
+    # of the eager paths
+    _captured_paths(y_obs)
     launches = {G1: g1_launches,
                 G2: seen["4a"][G2],
                 G3: seen["4f"][G3],

@@ -16,8 +16,8 @@ from ..core import gen, trace, normal, Unfold, ChoiceMap, Entry
 from ..core.gfi import batched_interpretation
 from ..smc.algorithms import run_particle_filter
 
-__all__ = ["LGParams", "make_lgssm", "lg_obs_dense", "kalman_filter",
-           "lgssm_particle_filter", "synthesize_lg_data"]
+__all__ = ["LGParams", "make_lgssm", "lg_obs_at_t", "lg_obs_dense",
+           "kalman_filter", "lgssm_particle_filter", "synthesize_lg_data"]
 
 
 class LGParams(NamedTuple):
@@ -46,6 +46,13 @@ def make_lgssm(t_max: int, p: LGParams) -> Unfold:
 
     lg_step.batch_safe = True
     return Unfold(lg_step, t_max)
+
+
+def lg_obs_at_t(y_obs_full, t):
+    """Constrain only step ``t``: a one-hot ``[T]`` mask, built on the
+    device of ``y_obs_full``."""
+    steps = torch.arange(y_obs_full.shape[0], device=y_obs_full.device)
+    return ChoiceMap({("y",): Entry(y_obs_full, steps == t)})
 
 
 def lg_obs_dense(y_obs_full):

@@ -4,9 +4,11 @@ still or moving sinusoidally; the filter infers position ``y`` and the
 
 The filter runs init, then per step an ESS check, resampling (residual
 by default, as in the JAX package) plus windowed MH rejuvenation when ESS
-is low, and a one-step ``Extend``
-update. The ESS check is a Python ``if`` on a device scalar: one host
-synchronisation per step.
+is low, and a one-step ``Extend`` update. ``object_motion_filter_impl``
+is the filter loop, its ESS branch a ``device_cond``: eager
+(``object_motion_filter``) one host read per step; captured as one CUDA
+graph (``object_motion_filter_captured``, the JAX package's
+``jit(object_motion_filter_impl)``) none.
 """
 
 from __future__ import annotations
@@ -21,11 +23,14 @@ from ..core import (gen, trace, bernoulli, normal, Unfold, ChoiceMap, Entry,
                     Selection, Extend, NoChange, batched_interpretation)
 from ..smc import (pf_initialize, pf_update, pf_resample, pf_rejuvenate,
                    effective_sample_size, mh)
+from ..smc.capture import capture, device_cond, host_pred
 from ..utils.device import entry_device
 from ..utils.spans import span as _span
 
 __all__ = ["make_object_motion", "init_state", "synthesize_data",
-           "obs_dense", "object_motion_filter", "exact_posterior"]
+           "obs_at_t", "obs_dense", "object_motion_filter",
+           "object_motion_filter_impl", "object_motion_filter_captured",
+           "exact_posterior"]
 
 
 def make_object_motion(t_max: int, batch_safe: bool = True) -> Unfold:
@@ -56,6 +61,14 @@ def init_state(device="cuda"):
             torch.zeros((), dtype=torch.bool, device=device))
 
 
+def obs_at_t(y_obs_full, t):
+    """Dense observation constraint selecting exactly step ``t`` (an int
+    or a device scalar): a one-hot ``[T]`` mask, built on the device of
+    ``y_obs_full``, makes each step's extension a masked update."""
+    steps = torch.arange(y_obs_full.shape[0], device=y_obs_full.device)
+    return ChoiceMap({("y_obs",): Entry(y_obs_full, steps == t)})
+
+
 def obs_dense(y_obs_full):
     """Dense observation constraint with a STATIC True mask: the handlers
     store the observed site SHARED (one [T] row, not [T, N]) and never
@@ -77,17 +90,16 @@ def synthesize_data(gen, t_max: int, switch_t: int):
     return y_obs, tr
 
 
-def object_motion_filter(gen, y_obs, n_particles: int, t_max: int,
-                         ess_frac: float = 0.5,
-                         resample_method: str = "residual", device=None,
-                         batch_safe: bool = True):
-    """The README particle filter: resampling + MH rejuvenation when
-    ESS < ess_frac·N, then a one-step extension update. Runs on ``device``
-    (default: the device of ``gen``), drawing every random number from
-    ``gen``; ``batch_safe=False`` runs the step body per particle."""
-    device = gen.device if device is None else torch.device(device)
-    if device.type != gen.device.type:
-        raise ValueError(f"generator on {gen.device}, filter on {device}")
+def object_motion_filter_impl(gen, y_obs, n_particles: int, t_max: int,
+                              ess_frac: float = 0.5,
+                              resample_method: str = "residual",
+                              batch_safe: bool = True):
+    """The README particle-filter driver: resampling + MH rejuvenation
+    when ESS < ess_frac·N (a ``device_cond``), then a one-step extension
+    update, every random number drawn from ``gen``, on its device. Eager
+    it reads the ESS on the host once per step; under ``capture`` the
+    branch is a device select inside the graph."""
+    device = gen.device
     y_obs = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
     model = make_object_motion(t_max, batch_safe)
     x0 = init_state(device)
@@ -96,20 +108,50 @@ def object_motion_filter(gen, y_obs, n_particles: int, t_max: int,
     with _span("om.initialize"):
         state = pf_initialize(gen, model, (1, x0), obs, n_particles)
     steps = torch.arange(t_max, device=device)
+
+    def resample_rejuvenate(state, t):
+        with _span("om.resample"):
+            state = pf_resample(gen, state, resample_method, check=False)
+        with _span("om.rejuvenate"):
+            sel_mask = (steps == t - 1) | (steps == t)
+            sel = Selection({("moving",): sel_mask, ("y",): sel_mask})
+            return pf_rejuvenate(gen, state, mh, (sel,), window=2)
+
     for t in range(1, t_max):
         with _span("om.ess_check"):
-            low = bool(effective_sample_size(state) < ess_frac * n_particles)
-        if low:
-            with _span("om.resample"):
-                state = pf_resample(gen, state, resample_method, check=False)
-            with _span("om.rejuvenate"):
-                sel_mask = (steps == t - 1) | (steps == t)
-                sel = Selection({("moving",): sel_mask, ("y",): sel_mask})
-                state = pf_rejuvenate(gen, state, mh, (sel,), window=2)
+            low = host_pred(effective_sample_size(state)
+                            < ess_frac * n_particles)
+        state = device_cond(low, lambda s: resample_rejuvenate(s, t), state)
         with _span("om.update"):
             state = pf_update(gen, state, (t + 1, x0),
                               (Extend(1), NoChange()), obs, check=False)
     return state
+
+
+def object_motion_filter(gen, y_obs, n_particles: int, t_max: int,
+                         ess_frac: float = 0.5,
+                         resample_method: str = "residual", device=None,
+                         batch_safe: bool = True):
+    """The README particle filter, eager: :func:`object_motion_filter_impl`
+    on ``device`` (default: the device of ``gen``, which must be of the
+    same type); ``batch_safe=False`` runs the step body per particle."""
+    device = gen.device if device is None else torch.device(device)
+    if device.type != gen.device.type:
+        raise ValueError(f"generator on {gen.device}, filter on {device}")
+    return object_motion_filter_impl(gen, y_obs, n_particles, t_max,
+                                     ess_frac, resample_method, batch_safe)
+
+
+def object_motion_filter_captured(gen, y_obs, n_particles: int, t_max: int,
+                                  ess_frac: float = 0.5,
+                                  resample_method: str = "residual"):
+    """The JAX package's ``object_motion_filter = jit(impl)``: the whole
+    filter captured once as a CUDA graph on ``gen``'s card. Returns a
+    :class:`~..smc.capture.CapturedRun`: ``run()`` replays it (``run(y)``
+    with new observations of the same shape), drawing from ``gen`` at its
+    current state, and returns a fresh state."""
+    return capture(object_motion_filter_impl, gen, y_obs, n_particles, t_max,
+                   ess_frac=ess_frac, resample_method=resample_method)
 
 
 def exact_posterior(y_obs):

@@ -68,9 +68,10 @@ def tempered_log_z(n_grid: int = 20001, lo=-15.0, hi=15.0):
 
 
 def run_tempered_smc(gen, n_particles: int, n_temps: int = 50,
-                     rejuv_iters: int = 2):
+                     rejuv_iters: int = 2, ess_frac: float = 0.75):
     """Tempered SMC at ``n_particles`` over ``n_temps`` temperatures, with
-    ``rejuv_iters`` MH sweeps on x after each resampling. Returns
+    ``rejuv_iters`` MH sweeps on x after each resampling (when ESS <
+    ``ess_frac``·N; the JAX package's driver fixes it at 0.75). Returns
     ``(state, log_ml_estimate)``."""
     model = make_tempered_model()
     betas = torch.linspace(0.0, 1.0, n_temps, dtype=torch.float32,
@@ -81,5 +82,5 @@ def run_tempered_smc(gen, n_particles: int, n_temps: int = 50,
                              n_iters=rejuv_iters)
 
     return tempered_smc(gen, model, betas, n_particles,
-                        rejuvenate_fn=rejuvenate, ess_frac=0.75,
+                        rejuvenate_fn=rejuvenate, ess_frac=ess_frac,
                         span_prefix="tm")

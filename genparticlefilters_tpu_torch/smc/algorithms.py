@@ -6,14 +6,17 @@
   move an ``update`` to new model arguments, with ESS-triggered
   resampling and optional rejuvenation.
 
-Both are Python loops over the steps, with the ESS trigger a Python ``if``
-on a device scalar: one host synchronisation per step. Given a particle
-``mesh`` (parallel/mesh.py), :func:`run_particle_filter` runs each rank's
-block of the particles: the ESS is global, so every rank takes the same
-branch, and the resample is the exact global one. Each phase runs in
-a ``torch.profiler`` span: ``{span_prefix}.initialize``, ``.ess_check``,
-``.resample``, ``.rejuvenate`` and ``.update``; each model's wrapper
-passes its own prefix (``sv``, ``tm``).
+Both are Python loops over the steps, with the ESS trigger a
+:func:`~.capture.device_cond`: eager, one host read of the device scalar
+per step; under :func:`~.capture.capture`, a device select inside the
+CUDA graph (the loop unrolls, as ``lax.scan`` is lowered) and no host
+read. Given a particle ``mesh`` (parallel/mesh.py),
+:func:`run_particle_filter` runs each rank's block of the particles: the
+ESS is global, so every rank takes the same branch, and the resample is
+the exact global one. Each phase runs in a ``torch.profiler`` span:
+``{span_prefix}.initialize``, ``.ess_check``, ``.resample``,
+``.rejuvenate`` and ``.update``; each model's wrapper passes its own
+prefix (``sv``, ``tm``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from .state import ParticleFilterState, effective_sample_size, log_ml_estimate
 from .initialize import pf_initialize
 from .update import pf_update
 from .resample import pf_resample
+from .capture import device_cond, host_pred
 
 __all__ = ["run_particle_filter", "tempered_smc"]
 
@@ -80,10 +84,10 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
         (Extend(1),) + tuple(NoChange() for _ in range(n_args - 1)))
     for t in range(1, t_max):
         with span(f"{span_prefix}.ess_check"):
-            low = bool(effective_sample_size(state) < ess_frac * n_particles)
-        if low:
-            state = _resample_rejuvenate(gen, state, resample_method,
-                                         rejuvenate_fn, t, span_prefix)
+            low = host_pred(effective_sample_size(state)
+                            < ess_frac * n_particles)
+        state = device_cond(low, lambda s: _resample_rejuvenate(
+            gen, s, resample_method, rejuvenate_fn, t, span_prefix), state)
         with span(f"{span_prefix}.update"):
             state = pf_update(gen, state, step_args_fn(t), diffs, obs_fn(t),
                               check=False)
@@ -107,7 +111,9 @@ def tempered_smc(gen, model: GenFn, betas, n_particles: int,
     args-update by ``pf_update(..., translator=UpdatingTraceTranslator(
     ...))``.
 
-    Returns ``(state, log_ml_estimate)``.
+    Returns ``(state, log_ml_estimate)``. ``betas`` is read where it
+    lies: under :func:`~.capture.capture`, pass a tensor on the card (a
+    static input buffer), not a host list.
     """
     args_of = model_args_fn or (lambda b: (b,))
     betas = torch.as_tensor(betas, dtype=torch.float32, device=gen.device)
@@ -117,10 +123,10 @@ def tempered_smc(gen, model: GenFn, betas, n_particles: int,
     for i in range(1, betas.shape[0]):
         beta = betas[i]
         with span(f"{span_prefix}.ess_check"):
-            low = bool(effective_sample_size(state) < ess_frac * n_particles)
-        if low:
-            state = _resample_rejuvenate(gen, state, resample_method,
-                                         rejuvenate_fn, beta, span_prefix)
+            low = host_pred(effective_sample_size(state)
+                            < ess_frac * n_particles)
+        state = device_cond(low, lambda s: _resample_rejuvenate(
+            gen, s, resample_method, rejuvenate_fn, beta, span_prefix), state)
         args = args_of(beta)
         with span(f"{span_prefix}.update"):
             state = pf_update(gen, state, args,

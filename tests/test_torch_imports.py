@@ -36,7 +36,7 @@ def test_every_module_imports():
                  "smc.translate", "utils.stratification",
                  "models.stochastic_volatility", "models.tempered",
                  "utils.device", "utils.checkpoint", "utils.profiling",
-                 "config"):
+                 "config", "smc.capture"):
         assert f"genparticlefilters_tpu_torch.{name}" in names
     for name in names:
         importlib.import_module(name)
@@ -77,13 +77,30 @@ def test_every_public_name_of_the_jax_package_is_ported():
     assert not hasattr(tcfg, "use_clustered_gather")
 
 
+@pytest.mark.parametrize("model", ["object_motion", "linear_gaussian",
+                                   "stochastic_volatility", "tempered",
+                                   "multi_object"])
+def test_every_public_model_name_of_the_jax_package_is_ported(model):
+    """Each model module of the port exports every name of its JAX
+    counterpart's ``__all__`` (object motion's ``object_motion_filter_impl``
+    and ``obs_at_t`` and linear Gaussian's ``lg_obs_at_t`` among them)."""
+    pytest.importorskip("jax")
+    jmod = importlib.import_module(f"genparticlefilters_tpu.models.{model}")
+    tmod = importlib.import_module(
+        f"genparticlefilters_tpu_torch.models.{model}")
+    missing = [n for n in jmod.__all__ if n not in tmod.__all__
+               or not hasattr(tmod, n)]
+    assert not missing, missing
+
+
 def test_new_modules_import_without_jax_or_triton():
     """ops/gather, smc/resize, smc/translate, smc/update,
     utils/stratification, utils/device, utils/checkpoint,
     utils/profiling, config, core/batching, core/gfi and core/combinators
     (with MapCombinator), interop, the multi-object, stochastic-volatility
-    and tempered models and parallel (with the mesh) import in a fresh
-    interpreter where jax and triton cannot be imported."""
+    and tempered models, parallel (with the mesh) and smc/capture (with the
+    object-motion model's compiled driver) import in a fresh interpreter
+    where jax and triton cannot be imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -117,6 +134,13 @@ def test_new_modules_import_without_jax_or_triton():
         "from genparticlefilters_tpu_torch.core.batching import vmap_gfi\n"
         "from genparticlefilters_tpu_torch.utils import save_state, Timer\n"
         "from genparticlefilters_tpu_torch import MapCombinator, propose\n"
+        "import genparticlefilters_tpu_torch.smc.capture\n"
+        "from genparticlefilters_tpu_torch import device_cond, capture\n"
+        "from genparticlefilters_tpu_torch.models.object_motion import (\n"
+        "    object_motion_filter_impl, object_motion_filter_captured,\n"
+        "    obs_at_t)\n"
+        "from genparticlefilters_tpu_torch.models.linear_gaussian import (\n"
+        "    lg_obs_at_t)\n"
         "assert not any(m.split('.')[0] in ('jax', 'triton')\n"
         "               for m in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
