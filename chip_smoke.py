@@ -7,18 +7,26 @@ Phases (each prints summary lines; any failure raises, so the exit code is
 non-zero and no result line is printed):
 
 1. environment: torch / CUDA / nvcc / triton versions, the card, its
-   driver, and whether PyTorch has CUDA conditional nodes
-   (``CUDAGraph.begin_capture_to_if_node``);
+   driver, whether PyTorch has CUDA conditional nodes
+   (``CUDAGraph.begin_capture_to_if_node``), the CUDA runtime (torch's
+   and the toolkit's) and driver versions, and whether IF nodes with an
+   ELSE body are available (12.8 or later on both);
 2. build: compile the kernels for sm_90a, one nvcc per source, side by
    side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu), G3
-   (csrc/gather_parents.cu, column and row mode) and G4
-   (csrc/merge_count.cu);
+   (csrc/gather_parents.cu, column and row mode), G4
+   (csrc/merge_count.cu) and the conditional-node shim
+   (csrc/graph_cond.cu, which refuses a toolkit older than 12.8), whose
+   runtime and driver versions are printed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, bit-equal at the main-path shapes and the edge shapes (G1 and G2
    also at a 1026-row pack; G4 also at skewed inputs: degenerate weights,
    all-equal u, n or m = 1, m = 4n and n = 4m, m = 0; G3's row mode at
    widths 1-16, a view off a 16-byte boundary, M = N/4 and 4N, extreme
-   bit patterns);
+   bit patterns); graph_cond: a toy device_cond on a state of three
+   1M-element leaves (the branch draws) captured as an IF node and as the
+   select, replayed with the predicate flipped through its input buffer,
+   every replay bit-equal to the select's from one seed, to the eager run
+   where taken and to the incoming state where not;
 4. main path: the object-motion filter at N=100K, T=10, systematic
    resampling, on cuda — G1's launch count must rise during the run — then
    the posterior against exact enumeration over 4 seeds;
@@ -119,31 +127,43 @@ non-zero and no result line is printed):
    seed, each blockwise resample without a collective or a
    torch.distributed call;
 4x. (run last, after phases 5 and 6) the compiled drivers
-   (smc/capture.py): each filter run captured once
-   as a CUDA graph, its ESS branch a device select (the branch always
-   runs, its leaves chosen by torch.where; PyTorch 2.11 has no CUDA
-   conditional nodes), and
-   replayed: the headline at N=100K and 1M, T=10, systematic (G1 a graph
-   node) and residual (G2 count + G1), config 2 (the linear-Gaussian
-   filter, N=10K, T=8), 4k SV (99 branches), 4l tempered (49 branches)
-   and config 5's filter (MOT K=4, N=1M, T=10, no resizes). Each cell:
-   (a) with every branch forced (ess_frac 1.5)
-   the replay from a fresh seed bit-equal, leaf for leaf, to the eager run
-   from that seed, and two replays from one seed to each other; at the
-   default ess_frac (f) the capture's time and pool memory and the
-   kernels captured as graph nodes, (b) the eager cell's gate on replays
-   (the registered generator reseeded before each): exact enumeration over
-   4 seeds, the Kalman filter, the bootstrap LML, the quadrature log Z,
-   config 5's posterior means; (c) 0 host syncs per replay (the eager
-   run's printed beside); (e) ms/run of the replay and of the eager run in
-   turns, median of 5; (d) one profiled replay: its kernels, device busy
-   ms and idle share, failing where it shows no device time or no G1 (G2)
-   kernel. Every cell runs before a failure is raised;
+   (smc/capture.py): each filter run captured once as a CUDA graph, each
+   ESS branch an IF node with an ELSE body (csrc/graph_cond.cu: only the
+   taken body runs, the predicate read on the card), and captured again
+   in the select form (the branch always runs, its leaves chosen by
+   torch.where) as the yardstick; replayed: the headline at N=100K and
+   1M, T=10, systematic (G1 a node in the THEN body) and residual (G2
+   count + G1), config 2 (the linear-Gaussian filter, N=10K, T=8), 4k SV
+   (99 branches), 4l tempered (49 branches) and config 5's filter (MOT
+   K=4, N=1M, T=10, no resizes). Each cell: (a) with every branch forced
+   (ess_frac 1.5) the IF replay from a fresh seed bit-equal, leaf for
+   leaf, to the eager run from that seed, and two replays from one seed
+   to each other; (g) the IF replay bit-equal to the select replay from
+   one seed, forced and at the default ess_frac; at the default ess_frac
+   (f) each form's capture time and pool memory, the kernels captured as
+   graph nodes and the IF nodes per graph, which must equal the ESS
+   checks per run (9, 9, 7, 99, 49, 9), (b) the eager cell's gate on IF
+   replays (the registered generator reseeded before each): exact
+   enumeration over 4 seeds, the Kalman filter, the bootstrap LML, the
+   quadrature log Z, config 5's posterior means; (c) 0 host syncs per
+   replay (the eager run's printed beside); (e) ms/run of the IF replay,
+   the select replay and the eager run in turns, median of 5; (d) one
+   profiled run of each, after a profiled warm-up run: kernels, device
+   busy ms and idle share, failing
+   where the IF replay shows no device time or no G1 (G2) kernel, the IF
+   replay profiled from the first seed of 971-986 whose replay resampled;
+   the forced checks come last in a cell, with each form's profiled busy
+   ms. Every captured run is kept until 4x ends (once a graph is
+   destroyed the profiler names the kernels in a later graph's IF bodies
+   after the destroyed graph's); the last cell frees them before its
+   forced runs. Every cell runs before a failure is raised;
 5. timing: each kernel against its plain version and, where one PyTorch
    call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
    in the loop), with its bound (the bytes it must move over 3.35 TB/s)
-   and its share of the bound, at N=100K and N=1M; G4 also at the skewed
+   and its share of the bound, at N=100K and N=1M; the toy device_cond of
+   phase 3 as an IF graph against its select graph, each replay one call,
+   at both predicates; G4 also at the skewed
    inputs and G3's row mode at widths 1, 8 and 16; the whole filter per
    run at N=100K and N=1M for systematic, residual and multinomial
    resampling; the host syncs of one run (at most 9, the ESS checks); a
@@ -180,9 +200,11 @@ their LML bits as JSON (no result line).
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, a JSON line lists each kernel with its launches on
 the path that exercises it ((4) for G1, (4a) for G2, (4f) for G3's column
-mode, (4j) for its row mode, (4d) for G4), its largest error against the
-plain version, its device time at N=100K beside its plain version's, the
-library call's (or null) and its bound.
+mode, (4j) for its row mode, (4d) for G4, the IF nodes of 4x's headline
+capture at N=100K for graph_cond), its largest error against the plain
+version, its device time at N=100K beside its plain version's (for
+graph_cond the toy's untaken IF replay beside the select's), the library
+call's (or null) and its bound.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -191,9 +213,11 @@ import collections
 import contextlib
 import ctypes
 import gc
+import importlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -228,8 +252,9 @@ A_NEST, Q_NEST, R_NEST = 0.7, 0.6, 0.5   # their AR coefficient, process
 #                                 and observation sd
 K1_NEST, K2_NEST, S3_NEST = 8, 4, 3   # N1's plate, N2's plate, N3's
 #                                 inner sub-steps
-SPANS = ("om.", "c5.", "sv.", "tm.", "lm.", "mp.", "ns.", "mw.")   # profiler
-#                                 span prefixes of the runs
+SPANS = ("om.", "c5.", "sv.", "tm.", "lm.", "mp.", "ns.", "mw.",
+         "smc.")                # profiler span prefixes of the runs (smc.:
+#                                 run_particle_filter's default, configs 2, 5)
 MAX_SYNCS = 9                   # per object-motion run: the 9 ESS checks
 HBM_BYTES_PER_MS = 3.35e9       # the H100 SXM's 3.35 TB/s
 CSRC = "genparticlefilters_tpu_torch/csrc/"
@@ -248,8 +273,20 @@ KERNELS = {
                                   TPU + "gather.py:30, "
                                   + TPU + "sorted_gather.py:38"),
     "merge_count (G4)": (CSRC + "merge_count.cu", TPU + "merge_count.py:41"),
+    # not a TPU kernel: the IF node is XLA's conditional, lax.cond's
+    # lowering under jit, and its plain version is capture's _select
+    "graph_cond (IF)": (CSRC + "graph_cond.cu",
+                        "genparticlefilters_tpu/smc/algorithms.py:65, :112, "
+                        "genparticlefilters_tpu/models/object_motion.py:107 "
+                        "(lax.cond; not a TPU kernel)"),
 }
-G1, G2, G3, G3R, G4 = KERNELS
+G1, G2, G3, G3R, G4, GC = KERNELS
+N_TOY = 1 << 20                 # phase 3's device_cond state: 1M per leaf
+# every captured run, kept until 4x ends: once a graph is destroyed, the
+# profiler names the kernels in a later graph's IF bodies after the
+# destroyed graph's (seen on the card: config 2 after the headline, its G1
+# reported under other kernels' names)
+_KEPT = []
 
 
 def _run(cmd):
@@ -272,9 +309,17 @@ def _wrappers():
         resample_gather_split, resample_gather_split_u)
     from genparticlefilters_tpu_torch.ops.gather import (gather_cols,
                                                          gather_rows)
+    from genparticlefilters_tpu_torch.ops.graph_cond import if_node
     from genparticlefilters_tpu_torch.ops.merge_count import merge_count
     return dict(zip(KERNELS, (resample_gather_split, resample_gather_split_u,
-                              gather_cols, gather_rows, merge_count)))
+                              gather_cols, gather_rows, merge_count,
+                              if_node)))
+
+
+def _capture_module():
+    """``smc/capture.py`` itself (the package's ``capture`` attribute is
+    the function)."""
+    return importlib.import_module("genparticlefilters_tpu_torch.smc.capture")
 
 
 def _reset_counts():
@@ -304,6 +349,11 @@ def phase_environment():
     nvcc_v = _run([nvcc, "--version"]).splitlines()
     driver = _run(["nvidia-smi", "--query-gpu=driver_version",
                    "--format=csv,noheader"]).splitlines()
+    toolkit = re.search(r"release (\d+)\.(\d+)", "\n".join(nvcc_v))
+    toolkit = (int(toolkit[1]), int(toolkit[2])) if toolkit else None
+    drv = ctypes.c_int(0)
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(drv))
+    drv = (drv.value // 1000, drv.value % 1000 // 10)
     print(f"[1 env] python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, torch.version.cuda {torch.version.cuda}, "
           f"triton {triton_v}, nvcc: {nvcc_v[-1] if nvcc_v else '?'}; "
@@ -312,6 +362,12 @@ def phase_environment():
           f"driver {driver[0].strip() if driver else '?'}; "
           f"torch.cuda.CUDAGraph has begin_capture_to_if_node: "
           f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
+    print(f"[1 env] CUDA runtime: torch's {torch.version.cuda}, the "
+          f"toolkit's (nvcc, linked into csrc/graph_cond.cu) "
+          f"{'.'.join(map(str, toolkit)) if toolkit else '?'}; the "
+          f"driver's CUDA {drv[0]}.{drv[1]}; IF nodes with an ELSE body "
+          f"(toolkit and driver 12.8 or later): "
+          f"{bool(toolkit and toolkit >= (12, 8) and drv >= (12, 8))}")
 
 
 def phase_build():
@@ -326,8 +382,13 @@ def phase_build():
         print(f"[2 build] {info['source']} -> sm_90a in "
               f"{info['seconds']:.2f} s (cached={info['cached']}); "
               f"ptxas: {ptxas}")
-    print(f"[2 build] {len(libs)} kernels built side by side in "
+    print(f"[2 build] {len(libs)} libraries built side by side in "
           f"{wall:.2f} s")
+    from genparticlefilters_tpu_torch.ops.graph_cond import versions
+    v = versions()
+    print(f"[2 build] graph_cond: built against CUDA runtime "
+          f"{v['runtime']}, driver CUDA {v['driver']} (an IF node's ELSE "
+          f"body needs 12080 on both)")
 
 
 def _weights(kind, n, dev, gen):
@@ -619,12 +680,79 @@ def _check_G3(dev, gen):
     return max_err["cols"], max_err["rows"]
 
 
+def _toy_cond(gen, pred, x, k, z):
+    """One device_cond over a state of three [N_TOY] leaves and a static
+    one: the branch replaces x (drawing N_TOY uniforms) and k and keeps z;
+    the run draws four more after it."""
+    from genparticlefilters_tpu_torch import device_cond
+
+    def branch(s):
+        x_, k_, z_, tag = s
+        return (x_ * 2 + torch.rand(x_.shape, generator=gen,
+                                    device=x_.device), k_ + 3, z_, tag)
+    out = device_cond(pred, branch, (x, k, z, 7))
+    return out, torch.rand(4, generator=gen, device=x.device)
+
+
+def _toy_runs():
+    """(IF run, select run, their generators, the inputs): ``_toy_cond``
+    captured as it ships, an IF node, and through capture's private
+    ``_select_form`` as the select; each takes the predicate through its
+    static input buffer."""
+    from genparticlefilters_tpu_torch import capture
+    g = _gen(3)
+    inputs = (torch.tensor(True, device="cuda"),
+              torch.randn(N_TOY, generator=g, device="cuda"),
+              torch.randint(0, 1000, (N_TOY,), generator=g, device="cuda",
+                            dtype=torch.int32),
+              torch.randn(N_TOY, generator=g, device="cuda"))
+    g_if, g_sel = _gen(0), _gen(0)
+    run = capture(_toy_cond, g_if, *inputs)
+    with _capture_module()._select_form():
+        sel = capture(_toy_cond, g_sel, *inputs)
+    return run, sel, g_if, g_sel, inputs
+
+
+def _check_graph_cond():
+    """The IF node against its plain version: the toy captured both ways,
+    replayed with the predicate flipped through its input buffer, each
+    replay bit-equal to the select's from the same seed; taken, both equal
+    the eager run; untaken, the state comes back as it went in."""
+    run, sel, g_if, g_sel, (_, x, k, z) = _toy_runs()
+    if (run.nodes, sel.nodes) != (1, 0):
+        raise AssertionError(f"graph_cond: {run.nodes} IF nodes captured "
+                             f"(want 1), {sel.nodes} in the select form")
+    err = 0.0
+    for p in (True, False, False, True):
+        pred = torch.tensor(p)
+        g_if.manual_seed(5)
+        a = run(pred)
+        g_sel.manual_seed(5)
+        b = sel(pred)
+        want = (_toy_cond(_gen(5), pred.cuda(), x, k, z) if p
+                else ((x, k, z, 7), a[1]))
+        torch.cuda.synchronize()
+        err = max([err] + [float((u.double() - v.double()).abs().max())
+                           for u, v in zip(a[0][:3], b[0][:3])])
+        diff = _bit_equal(a, b) or _bit_equal(a, want)
+        print(f"[3 graph_cond] predicate {p} through the input buffer, seed "
+              f"5, state 3 x [{N_TOY}]: IF replay "
+              f"{'bit-equal' if diff is None else 'differs at ' + diff} to "
+              f"the select replay and to "
+              f"{'the eager run' if p else 'the incoming state'}")
+        if diff is not None:
+            raise AssertionError(f"graph_cond differs: predicate {p}, {diff}")
+    _KEPT.extend((run, sel))
+    return err
+
+
 def phase_kernel_vs_plain():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.manual_seed(0)
     return dict(zip(KERNELS, (_check_G1(dev, gen), _check_G2(dev, gen),
-                              *_check_G3(dev, gen), _check_G4(dev, gen))))
+                              *_check_G3(dev, gen), _check_G4(dev, gen),
+                              _check_graph_cond())))
 
 
 def _data():
@@ -2703,14 +2831,57 @@ def _bit_equal(a, b):
     return None
 
 
-def _x_forced(label, fn, args, kw, seed=970):
-    """(a): with every branch forced, the replay from a fresh seed against
-    the eager run from the same seed, leaf for leaf, and two replays from
-    one seed against each other. Returns what differed, or None."""
+def _x_capture_both(fn, args, kw, seed):
+    """(IF run, its generator, select run, its generator): ``fn`` captured
+    as it ships, each device_cond an IF node, and through capture's
+    private ``_select_form`` with each a device select, both on
+    generators seeded ``seed``."""
     from genparticlefilters_tpu_torch import capture
-    kw = dict(kw, ess_frac=X_FORCE)
-    gen = _gen(0)
+    gen, gen_sel = _gen(seed), _gen(seed)
     run = capture(fn, gen, *args, **kw)
+    with _capture_module()._select_form():
+        sel = capture(fn, gen_sel, *args, **kw)
+    return run, gen, sel, gen_sel
+
+
+def _x_same(run, gen, sel, gen_sel, seed):
+    """(g): the IF replay against the select replay from one seed; None
+    where bit-equal, else the first leaf that differs."""
+    gen.manual_seed(seed)
+    a = run()
+    gen_sel.manual_seed(seed)
+    b = sel()
+    torch.cuda.synchronize()
+    return _bit_equal(a, b)
+
+
+X_SEEDS = range(971, 987)     # where (d) looks for a replay that resampled
+
+
+def _x_fired_seed(run, gen, take):
+    """The first seed of ``X_SEEDS`` whose replay resampled at some step
+    (the state's parents are not the identity): there an ESS branch was
+    taken, so its kernels ran in a THEN body. The last seed where none
+    did (then (d) finds no G1 and fails)."""
+    for seed in X_SEEDS:
+        gen.manual_seed(seed)
+        parents = take(run()).parents
+        if not torch.equal(parents, torch.arange(
+                parents.shape[0], device=parents.device,
+                dtype=parents.dtype)):
+            return seed
+    return seed
+
+
+def _x_forced(label, fn, args, kw, keep, seed=970):
+    """(a) and (g) with every branch forced: the IF replay from a fresh
+    seed against the eager run from the same seed and against the select
+    replay from it, leaf for leaf, and two IF replays from one seed
+    against each other. Returns what differed, or None; the two runs go
+    into ``keep``."""
+    kw = dict(kw, ess_frac=X_FORCE)
+    run, gen, sel, gen_sel = _x_capture_both(fn, args, kw, 0)
+    keep += [run, sel]
     eager = fn(_gen(seed), *args, **kw)
     gen.manual_seed(seed)
     first = run()
@@ -2718,32 +2889,46 @@ def _x_forced(label, fn, args, kw, seed=970):
     second = run()
     torch.cuda.synchronize()
     vs_eager, vs_replay = _bit_equal(first, eager), _bit_equal(first, second)
-    print(f"[4x {label} (a)] every branch forced (ess_frac {X_FORCE}), seed "
-          f"{seed}: replay against eager "
+    vs_select = _x_same(run, gen, sel, gen_sel, seed)
+    # every body taken: the IF replay does the select's work, so the
+    # profiler must see as much device time in it (the kernels inside
+    # the THEN bodies included)
+    busy = {k: _x_profile(r)[1] for k, r in (("IF", run), ("select", sel))}
+    print(f"[4x {label} (a), (g)] every branch forced (ess_frac {X_FORCE}), "
+          f"seed {seed}: IF replay against eager "
           f"{'bit-equal' if vs_eager is None else 'differs at ' + vs_eager}"
-          f"; two replays "
-          f"{'bit-equal' if vs_replay is None else 'differ at ' + vs_replay}")
-    del run
-    if vs_eager is not None or vs_replay is not None:
-        return (f"4x {label} (a): replay against eager {vs_eager}, replay "
-                f"against replay {vs_replay}")
+          f"; two IF replays "
+          f"{'bit-equal' if vs_replay is None else 'differ at ' + vs_replay}"
+          f"; IF replay against the select replay "
+          f"{'bit-equal' if vs_select is None else 'differs at ' + vs_select}"
+          f"; profiled device busy IF {busy['IF']:.3f} ms, select "
+          f"{busy['select']:.3f} ms")
+    if vs_eager is not None or vs_replay is not None or vs_select is not None:
+        return (f"4x {label} (a)/(g) forced: IF replay against eager "
+                f"{vs_eager}, against IF replay {vs_replay}, against the "
+                f"select replay {vs_select}")
     return None
 
 
-def _x_profile(run):
-    """One replay under torch.profiler: (kernels, device busy ms, kernel
-    names seen)."""
+def _x_profile(run, reseed=lambda: None):
+    """One run under torch.profiler, after a profiled warm-up run (the
+    first profile of a cell in a long process lost a third of the
+    replay's kernels once: 1,206 of the headline's ~1,980): (kernels,
+    device busy ms, {kernel name: count}). ``reseed`` runs before each."""
     from torch.profiler import profile, ProfilerActivity
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        run()
-        torch.cuda.synchronize()
+    for _ in range(2):
+        reseed()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            run()
+            torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages() if e.device_type == cuda
             and not e.key.startswith(SPANS)]
     return (sum(e.count for e in kern),
             sum(e.self_device_time_total for e in kern) / 1e3,
-            {e.key for e in kern})
+            {e.key: e.count for e in kern})
 
 
 def _x_turns(fns, reps=5):
@@ -2762,57 +2947,89 @@ def _x_turns(fns, reps=5):
             for k, v in times.items()}
 
 
-def _x_cell(label, fn, args, kw, need, gate, card, take=lambda out: out):
-    """One 4x cell: (a) forced, then at the default ess_frac the capture
-    (its time, pool memory and the kernels captured as graph nodes), (b)
-    the eager cell's gate on replays, (c) host syncs per replay against
-    the eager run's, (e) ms/run of the replay and the eager run in turns,
-    (d) one profiled replay, which must show device time and each kernel
-    of ``need``. Returns the launch counts at capture."""
-    from genparticlefilters_tpu_torch import capture
-    forced = _x_forced(label, fn, args, kw)
-    gen = _gen(1)
+def _x_cell(label, fn, args, kw, need, checks, gate, card, keep, last,
+            take=lambda out: out):
+    """One 4x cell: at the default ess_frac the capture in both forms
+    (time, pool memory, the kernels captured as graph nodes, the IF nodes:
+    one per ESS check), (g) the IF replay bit-equal to the select replay
+    from one seed, (b) the eager cell's gate on IF replays, (c) host syncs
+    per IF replay against the eager run's, (e) ms/run of the IF replay,
+    the select replay and the eager run in turns, (d) one profiled run of
+    each, the IF replay's showing device time and each kernel of
+    ``need``; then (a) and (g) forced. Returns the launch counts at the IF
+    capture. Every captured run goes into ``keep``; the ``last`` cell
+    empties it before its forced runs, since no profile follows."""
     _reset_counts()
-    run = capture(fn, gen, *args, **kw)
+    run, gen, sel, gen_sel = _x_capture_both(fn, args, kw, 1)
+    keep += [run, sel]
     torch.cuda.synchronize()
     counts = _counts()
     missing = [k for k in need if counts[k] < 1]
     if missing:
         raise AssertionError(f"4x {label}: {missing} not captured")
-    print(f"[4x {label} (f)] captured in {run.capture_seconds * 1e3:.1f} ms "
-          f"(warm-up not counted); pool {run.pool_bytes / 2**20:.1f} MiB "
-          f"past what was allocated before (torch.cuda.max_memory_allocated);"
-          f" kernel launches in capture's warm-up and capture, half each "
-          f"(one program; the capture's are graph nodes): {_short(counts)}")
+    print(f"[4x {label} (f)] IF form captured in "
+          f"{run.capture_seconds * 1e3:.1f} ms, pool "
+          f"{run.pool_bytes / 2**20:.1f} MiB; select form "
+          f"{sel.capture_seconds * 1e3:.1f} ms, "
+          f"{sel.pool_bytes / 2**20:.1f} MiB (warm-up not counted; pool: "
+          f"torch.cuda.max_memory_allocated past what was allocated "
+          f"before); IF nodes per graph {run.nodes} ({checks} ESS checks "
+          f"per run); kernel launches in the captures' warm-ups and "
+          f"captures (one program; the captures' are graph nodes): "
+          f"{_short(counts)}")
+    if run.nodes != checks or sel.nodes != 0:
+        raise AssertionError(f"4x {label}: {run.nodes} IF nodes for "
+                             f"{checks} ESS checks, {sel.nodes} in the "
+                             f"select form")
+    vs_select = _x_same(run, gen, sel, gen_sel, 971)
+    print(f"[4x {label} (g)] ess_frac as the cell runs, seed 971: IF replay "
+          f"against the select replay "
+          f"{'bit-equal' if vs_select is None else 'differs at ' + vs_select}")
     gate(_reseeded(run, gen, take))
     _, syncs = _synced(run)
     _, eager_syncs = _synced(lambda: fn(_gen(401), *args, **kw))
     if syncs:
         raise AssertionError(f"4x {label}: {len(syncs)} host syncs in one "
                              f"replay: {syncs[:6]}")
-    wall = _x_turns({"replay": run, "eager": lambda: fn(_gen(402), *args,
-                                                        **kw)})
-    kernels, busy, names = _x_profile(run)
+    eager = lambda: fn(_gen(402), *args, **kw)  # noqa: E731
+    wall = _x_turns({"IF": run, "select": sel, "eager": eager})
+    seed = _x_fired_seed(run, gen, take)
+    prof = {"IF": _x_profile(run, lambda: gen.manual_seed(seed)),
+            "select": _x_profile(sel, lambda: gen_sel.manual_seed(seed)),
+            "eager": _x_profile(lambda: fn(_gen(seed), *args, **kw))}
     # a profiler key is the demangled signature: "stairs_gather_kernel(...)"
-    missing = [k for k in need
-               if not any(n.startswith(X_KERNELS[k] + "(") for n in names)]
-    rep, eag = wall["replay"], wall["eager"]
-    print(f"[4x {label}] (c) host syncs per replay {len(syncs)}, eager "
-          f"{len(eager_syncs)}; (e) replay {rep[0]:.3f} ms/run (min "
-          f"{rep[1]:.3f}, max {rep[2]:.3f}), eager {eag[0]:.3f} (min "
-          f"{eag[1]:.3f}, max {eag[2]:.3f}), median of 5 after a warm-up, in "
-          f"turns: {eag[0] / rep[0]:.2f}x; (d) one profiled replay: "
-          f"{kernels} kernels, device busy {busy:.3f} ms, idle share "
-          f"{1 - busy / rep[0]:.3f}; card {card}")
+    missing = [k for k in need if not any(
+        n.startswith(X_KERNELS[k] + "(") for n in prof["IF"][2])]
+    print(f"[4x {label}] (c) host syncs per IF replay {len(syncs)}, eager "
+          f"{len(eager_syncs)}; (e) ms/run, median of 5 after a warm-up, in "
+          f"turns (min, max); (d) one profiled run each from seed {seed}, the "
+          f"first from {X_SEEDS[0]} whose IF replay resampled: kernels, "
+          f"device busy ms, idle share (1 - busy / median ms): " + "; ".join(
+              f"{k} {wall[k][0]:.3f} ms ({wall[k][1]:.3f}, {wall[k][2]:.3f}), "
+              f"{prof[k][0]} kernels, busy {prof[k][1]:.3f} ms, idle "
+              f"{1 - prof[k][1] / wall[k][0]:.3f}" for k in wall)
+          + f"; eager / IF {wall['eager'][0] / wall['IF'][0]:.2f}x, select / "
+          f"IF {wall['select'][0] / wall['IF'][0]:.2f}x; card {card}")
+    kernels, busy, names = prof["IF"]
+    print(f"[4x {label}] device memory reserved after (d) "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB (every captured "
+          f"run of 4x kept so far)")
+    if last:
+        del run, sel
+        keep.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    forced = _x_forced(label, fn, args, kw, keep)
     if busy <= 0 or missing:
-        raise AssertionError(f"4x {label}: the profiled replay shows "
+        raise AssertionError(f"4x {label}: the profiled IF replay shows "
                              f"{kernels} kernels, {busy:.3f} ms busy, no "
-                             f"{missing} kernel: {sorted(names)[:12]}")
-    del run
-    gc.collect()
-    torch.cuda.empty_cache()
+                             f"{missing} kernel: " + ", ".join(
+                                 f"{n[:48]} x{c}" for n, c in names.items()))
     if forced is not None:
         raise AssertionError(forced)
+    if vs_select is not None:
+        raise AssertionError(f"4x {label} (g): the IF replay differs from "
+                             f"the select replay at {vs_select}")
     return counts
 
 
@@ -2853,37 +3070,42 @@ def _captured_paths(y_obs):
         for method, need in (("systematic", (G1,)), ("residual", (G1, G2))):
             label = f"headline {method} N={n} T={T_MAIN}"
             cells.append((label, object_motion_filter_impl, (y_obs, n, T_MAIN),
-                          {"resample_method": method}, need,
+                          {"resample_method": method}, need, T_MAIN - 1,
                           lambda replay, n=n, label=label: _posterior_check(
                               replay, y_obs, n, f"4x {label}"), {}))
     cells.append((f"config 2 N={N_LG} T={T_LG}", lgssm_particle_filter,
                   (y_lg, N_LG, T_LG, p_lg), {"resample_method": "systematic"},
-                  (G1,), lambda replay: _lg_gate(
+                  (G1,), T_LG - 1, lambda replay: _lg_gate(
                       "4x config 2", [replay(_gen(10 + s), y_lg, N_LG)
                                       for s in range(4)], kalman), {}))
     label = f"4k SV N={N_SV} T={T_SV}"
     cells.append((label, sv_particle_filter, (y, N_SV, T_SV, p),
-                  {"rejuv_window": 2}, (G1,),
+                  {"rejuv_window": 2}, (G1,), T_SV - 1,
                   lambda replay: _sv_lml_gate("4x 4k SV", replay, y, p), {}))
     label = f"4l tempered N={N_TM} K={K_TM}"
     cells.append((label, run_tempered_smc, (N_TM,),
-                  {"n_temps": K_TM, "rejuv_iters": 2}, (G1,),
+                  {"n_temps": K_TM, "rejuv_iters": 2}, (G1,), K_TM - 1,
                   lambda replay: _tm_lml_gate("4x 4l tempered", replay, 840),
                   {"take": lambda out: out[0]}))
     cells.append((f"config 5 N={N_C5} T={T_C5}", mot_particle_filter,
                   (y_mot, N_C5, T_C5, MOTParams()),
-                  {"resample_method": "systematic"}, (G1,),
+                  {"resample_method": "systematic"}, (G1,), T_C5 - 1,
                   lambda replay: _mot_gate("4x config 5", replay, y_mot), {}))
     # every cell runs and prints what it measured before any failure is
     # raised: the failures are listed together at the end
-    seen, failed = {}, []
-    for label, fn, args, kw, need, gate, extra in cells:
+    seen, failed, keep = {}, [], _KEPT
+    for i, (label, fn, args, kw, need, checks, gate, extra) in enumerate(
+            cells):
         try:
-            seen[f"4x {label}"] = _x_cell(label, fn, args, kw, need, gate,
-                                          card, **extra)
+            seen[f"4x {label}"] = _x_cell(label, fn, args, kw, need, checks,
+                                          gate, card, keep,
+                                          i == len(cells) - 1, **extra)
         except Exception as e:              # re-raised below, all together
             print(f"[4x {label}] FAILED:\n{traceback.format_exc()}")
             failed.append(f"{label}: {type(e).__name__}: {e}")
+    keep.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     if failed:
         raise AssertionError("4x: " + " | ".join(failed))
     return seen
@@ -3172,6 +3394,25 @@ def _kernel_timing(n, card):
             lambda: torch.searchsorted(u, c, right=True, out_int32=True))}
 
 
+def _graph_cond_timing(card):
+    """The toy's IF graph against its select graph, each replay one call,
+    at both predicates; returns the untaken case's numbers. The bound is
+    the function's own bytes: the two replaced leaves read once and their
+    buffers written once (the draws are made, not read)."""
+    run, sel, _, _, _ = _toy_runs()
+    nbytes = 4 * 4 * N_TOY
+    out = {}
+    for p in (True, False):
+        run(torch.tensor(p))
+        sel(torch.tensor(p))
+        out[p] = _compare_timing(
+            f"graph_cond] toy device_cond, 3 x [{N_TOY}] state, predicate "
+            f"{p}: IF graph replay as kernel, select graph replay as plain",
+            run.graph.replay, sel.graph.replay, card, nbytes)
+    _KEPT.extend((run, sel))
+    return out[False]
+
+
 G3R_TIMED = [(w, kind) for w in (1, 8, 16)
              for kind in ("permutation", "clustered")]
 
@@ -3265,6 +3506,7 @@ def phase_timing(y_obs, card):
     _guard_timing(card, y_obs)
     _pp_timing(card, y_obs)
     kern_ms = _kernel_timing(N_MAIN, card)
+    kern_ms[GC] = _graph_cond_timing(card)
     _kernel_timing(1_000_000, card)
     _skewed_timing(card)
     dev = torch.device("cuda")
@@ -3670,12 +3912,14 @@ def main():
     # last: a capture registers the default generator with its graph and
     # the profiler then traces graph replays, so 4x runs after every count
     # of the eager paths
-    _captured_paths(y_obs)
+    x_seen = _captured_paths(y_obs)
     launches = {G1: g1_launches,
                 G2: seen["4a"][G2],
                 G3: seen["4f"][G3],
                 G3R: seen["4j"][G3R],
-                G4: seen["4d"][G4]}
+                G4: seen["4d"][G4],
+                GC: x_seen[f"4x headline systematic N={N_MAIN} "
+                           f"T={T_MAIN}"][GC]}
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": [{

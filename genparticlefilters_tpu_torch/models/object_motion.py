@@ -98,7 +98,8 @@ def object_motion_filter_impl(gen, y_obs, n_particles: int, t_max: int,
     when ESS < ess_frac·N (a ``device_cond``), then a one-step extension
     update, every random number drawn from ``gen``, on its device. Eager
     it reads the ESS on the host once per step; under ``capture`` the
-    branch is a device select inside the graph."""
+    branch is an IF node inside the graph, run only where the predicate,
+    read on the card, holds."""
     device = gen.device
     y_obs = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
     model = make_object_motion(t_max, batch_safe)

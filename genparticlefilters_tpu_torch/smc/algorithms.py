@@ -8,9 +8,9 @@
 
 Both are Python loops over the steps, with the ESS trigger a
 :func:`~.capture.device_cond`: eager, one host read of the device scalar
-per step; under :func:`~.capture.capture`, a device select inside the
-CUDA graph (the loop unrolls, as ``lax.scan`` is lowered) and no host
-read. Given a particle ``mesh`` (parallel/mesh.py),
+per step; under :func:`~.capture.capture`, an IF node inside the CUDA
+graph whose branch runs only where the predicate holds (the loop
+unrolls, as ``lax.scan`` is lowered) and no host read. Given a particle ``mesh`` (parallel/mesh.py),
 :func:`run_particle_filter` runs each rank's block of the particles: the
 ESS is global, so every rank takes the same branch, and the resample is
 the exact global one. Each phase runs in a ``torch.profiler`` span:

@@ -3,14 +3,20 @@
 
 - :func:`device_cond` is ``lax.cond(pred, branch, lambda s: s, state)``.
   Eager (a CPU predicate, or the card while nothing is being captured) it
-  reads ``pred`` on the host and runs ``branch`` or not. While a CUDA graph
-  is being captured it is a device select, JAX's own ``lax.cond`` under
-  ``vmap``: the branch always runs, and each leaf it replaced becomes
-  ``torch.where(pred, out, in)``, a fresh tensor, so no incoming tensor is
-  written. (PyTorch 2.11 has no CUDA conditional nodes:
-  ``CUDAGraph.begin_capture_to_if_node`` is missing.)
+  reads ``pred`` on the host and runs ``branch`` or not. While
+  :func:`capture` captures a graph it is what XLA's ``conditional`` is
+  under ``jit``: a CUDA-graph IF node (``ops/graph_cond.py``) whose THEN
+  body runs the branch and copies each leaf it replaced into a fresh
+  buffer, and whose ELSE body copies the incoming leaf into the same
+  buffer. At replay only the taken body runs and the predicate stays on
+  the card; no incoming tensor is written.
   Either way, a branch that returns another structure, leaf shape or
   dtype than it was given raises ``TypeError``, as ``lax.cond`` does.
+- ``_select`` is the IF node's plain version, ``lax.cond`` under
+  ``vmap``: the branch always runs and each leaf it replaced becomes
+  ``torch.where(pred, out, in)``. :func:`capture`'s eager warm-up runs
+  every branch through it, and ``_select_form`` makes a capture take it
+  (the yardstick the IF form is held against on the card).
 - :func:`host_pred` is where a filter loop reads its predicate: on the
   host (inside the loop's ``ess_check`` span) unless the captured form
   runs.
@@ -21,15 +27,18 @@
   generator registered, and returns a :class:`CapturedRun`. The filters'
   Python loops unroll under the capture, as ``lax.scan`` is lowered.
 
-The captured branch draws its random numbers at every step, taken or
-not: a replay draws the eager run's numbers where every branch fires. The
-kernels' ``launches`` counters and ``Unfold.steps_run`` count at capture,
-not per replay.
+A branch draws its random numbers at capture: each draw's Philox offset
+is fixed there, taken or not, so a replay's draws after an untaken branch
+are those after a taken one. An IF replay is bit-equal to the select
+replay from the same seed at any predicate, and to the eager run where
+every branch fires. The kernels' ``launches`` counters and
+``Unfold.steps_run`` count at capture, not per replay.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable
 
@@ -42,8 +51,12 @@ from ..core.tree import tree_flatten, tree_unflatten
 
 __all__ = ["device_cond", "host_pred", "capture", "CapturedRun"]
 
-# > 0 while capture() warms up: device_cond runs its captured form eagerly
+# > 0 while capture() warms up: device_cond runs its select form eagerly
 _WARMING = [0]
+# > 0 inside _select_form(): a capture takes the select form
+_SELECTING = [0]
+# the body streams and pools of the captures under way (capture() pushes)
+_BODIES: list = []
 
 
 def _graph_form(pred) -> bool:
@@ -94,8 +107,9 @@ def _flatten_like(state, out):
 
 
 def _select(pred, branch, state):
-    """The captured form: ``branch(state)`` always, then each leaf it
-    replaced selected on the device, ``torch.where(pred, out, in)``."""
+    """The IF node's plain version: ``branch(state)`` always, then each
+    leaf it replaced selected on the device, ``torch.where(pred, out,
+    in)``."""
     out = branch(state)
     in_leaves, out_leaves, out_def = _flatten_like(state, out)
     pred = pred.reshape(())
@@ -104,22 +118,138 @@ def _select(pred, branch, state):
         else o for x, o in zip(in_leaves, out_leaves)])
 
 
+def _if_form(node, branch, state):
+    """``device_cond`` on a conditional ``node``: its THEN body runs
+    ``branch(state)`` and copies each leaf the branch replaced into a
+    buffer from ``node.alloc``; its ELSE body copies the incoming leaf into
+    the same buffer. The result holds the buffers where the branch
+    replaced a leaf, and every other leaf as it came. ``node.then(fn)``
+    and ``node.otherwise(fn)`` capture ``fn``'s work into the two bodies
+    (on the card, :class:`_CardNode`)."""
+    done = {}
+
+    def then_body():
+        out = branch(state)
+        in_leaves, out_leaves, out_def = _flatten_like(state, out)
+        bufs = {i: node.alloc(x) for i, (x, o)
+                in enumerate(zip(in_leaves, out_leaves))
+                if isinstance(o, torch.Tensor) and o is not x}
+        for i, buf in bufs.items():
+            buf.copy_(out_leaves[i])
+        done.update(incoming={i: in_leaves[i] for i in bufs}, bufs=bufs,
+                    out_def=out_def,
+                    leaves=[bufs.get(i, o) for i, o in enumerate(out_leaves)])
+
+    def else_body():
+        for i, buf in done["bufs"].items():
+            buf.copy_(done["incoming"][i])
+    node.then(then_body)
+    node.otherwise(else_body)
+    return tree_unflatten(done["out_def"], done["leaves"])
+
+
+class _Bodies:
+    """What one capture's IF nodes share: the stream their bodies are
+    captured on and the memory pool their allocations go to. A body's
+    capture has its own capture id, so PyTorch's filter, which routes the
+    graph's allocations to its pool by capture id, misses it; the pool is
+    kept as long as the graph."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+        with torch.cuda.device(device):
+            self.pool = torch.cuda.MemPool()
+        self.active = False
+
+    def capture(self, graph, fn):
+        """``fn()`` with its work captured into the body ``graph`` on the
+        body stream, its allocations in the pool."""
+        from ..ops.graph_cond import capture_body
+        if self.active:
+            raise NotImplementedError(
+                "device_cond inside a device_cond branch under capture: "
+                "nested conditional nodes are not built")
+        self.active = True
+        try:
+            with torch.cuda.use_mem_pool(self.pool, self.device), \
+                    torch.cuda.stream(self.stream), \
+                    capture_body(graph, self.stream):
+                fn()
+        except TypeError:
+            raise
+        except Exception as e:
+            raise RuntimeError(
+                f"device_cond: the branch failed while captured into a "
+                f"conditional node's body ({type(e).__name__}: {e}); a body "
+                f"holds kernels, memsets, device copies and child graphs, "
+                f"no event record or wait (a fork to another stream) and "
+                f"no host node; the failing op is in the traceback above"
+            ) from e
+        finally:
+            self.active = False
+
+
+class _CardNode:
+    """One IF node with an ELSE body, captured on ``pred``'s current
+    stream; the buffers are allocated there, in the graph's pool."""
+
+    def __init__(self, pred, bodies: _Bodies):
+        from ..ops.graph_cond import if_node
+        self.bodies = bodies
+        self.outer = torch.cuda.current_stream(pred.device)
+        self.then_graph, self.else_graph = if_node(pred)
+
+    def alloc(self, x):
+        with torch.cuda.stream(self.outer):
+            return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+    def then(self, fn):
+        self.bodies.capture(self.then_graph, fn)
+
+    def otherwise(self, fn):
+        self.bodies.capture(self.else_graph, fn)
+
+
 def device_cond(pred, branch: Callable, state):
     """``branch(state)`` where ``pred`` holds, else ``state``; the
     counterpart of ``lax.cond(pred, branch, lambda s: s, state)``.
 
     ``pred`` is a Python bool or a one-element bool tensor. Eager, it is
-    read on the host. While a CUDA graph is being captured it stays on the
-    device: the branch always runs and every leaf it replaced is selected,
-    ``torch.where(pred, out, in)``. Raises ``TypeError`` where the branch
-    changes the structure, a leaf's shape or dtype, or a static leaf."""
+    read on the host. While :func:`capture` captures a graph it stays on
+    the card: one CUDA-graph IF node, its THEN body the branch and a copy
+    of every leaf the branch replaced into a fresh buffer, its ELSE body a
+    copy of the incoming leaves into the same buffers; leaves the branch
+    kept pass as the same objects. During :func:`capture`'s warm-up it is
+    ``_select``. Raises ``TypeError`` where the branch changes the
+    structure, a leaf's shape or dtype, or a static leaf, and
+    ``RuntimeError`` under a capture not made by :func:`capture` (which
+    owns the bodies' stream and pool)."""
     if _graph_form(pred):
-        return _select(pred, branch, state)
+        if _WARMING[0] > 0 or _SELECTING[0] > 0:
+            return _select(pred, branch, state)
+        if not _BODIES:
+            raise RuntimeError(
+                "device_cond under a CUDA graph capture that capture() did "
+                "not make: its conditional node needs the body stream and "
+                "pool that capture() sets up")
+        return _if_form(_CardNode(pred, _BODIES[-1]), branch, state)
     if not bool(pred):
         return state
     out = branch(state)
     _flatten_like(state, out)
     return out
+
+
+@contextlib.contextmanager
+def _select_form():
+    """Inside: a capture takes ``device_cond``'s plain version, the
+    select, instead of the IF node (the yardstick on the card)."""
+    _SELECTING[0] += 1
+    try:
+        yield
+    finally:
+        _SELECTING[0] -= 1
 
 
 @contextlib.contextmanager
@@ -201,16 +331,21 @@ class CapturedRun:
     result's tensors are fresh clones, as ``jit`` returns fresh arrays.
 
     ``capture_seconds`` is the capture's host time (like a compile time),
-    ``pool_bytes`` the device memory the capture's pool reached beyond what
-    was allocated before it."""
+    ``pool_bytes`` the device memory the capture's pools reached beyond
+    what was allocated before it, ``nodes`` the IF nodes in the graph (one
+    per :func:`device_cond`). ``bodies`` keeps the IF bodies' pool as long
+    as the graph."""
 
-    def __init__(self, fn, graph, inputs, out, capture_seconds, pool_bytes):
+    def __init__(self, fn, graph, inputs, out, capture_seconds, pool_bytes,
+                 nodes=0, bodies=None):
         self.fn = fn
         self.graph = graph
         self.inputs = inputs
         self.out = out
         self.capture_seconds = capture_seconds
         self.pool_bytes = pool_bytes
+        self.nodes = nodes
+        self.bodies = bodies
 
     def _load(self, args, kw):
         s_args, s_kw = self.inputs
@@ -267,10 +402,13 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     - every kernel is built and loaded (``ops/build.py`` ``load_all``);
     - tensor and numpy arguments are copied into static input buffers on
       the generator's card (the graph reads them there at every replay);
-    - ``fn`` runs once eagerly on a side stream in its captured form
-      (every :func:`device_cond` branch runs and is selected on the
-      device); the generator's state is restored after it;
-    - one run is captured into a private pool, with ``gen`` registered.
+    - ``fn`` runs once eagerly on a side stream with every
+      :func:`device_cond` in its select form (every branch runs, so every
+      kernel and lazy initialisation meets the card before the capture);
+      the generator's state is restored after it;
+    - one run is captured into a private pool, with ``gen`` registered,
+      each :func:`device_cond` an IF node whose bodies are captured on a
+      stream of their own into a second pool, kept with the graph.
 
     Raises on a generator that is not on the card, on ``mesh=``, and on a
     generative function that is not
@@ -316,14 +454,26 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
             f"the per-particle interpretation (vmap_gfi: a model, proposal "
             f"or translator that is not batch_safe), which runs uncaptured")
     gen.set_state(gen_state)
+    from ..ops.graph_cond import if_node
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(gen)
+    bodies = _Bodies(device)
+    # the warm-up's garbage freed now, not inside the capture, where it
+    # would lower pool_bytes by what it held
+    gc.collect()
     torch.cuda.synchronize(device)
     before = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
+    nodes = if_node.launches
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph, stream=side):
-        out = fn(gen, *s_args, **s_kw)
+    _BODIES.append(bodies)
+    try:
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="global"):
+            out = fn(gen, *s_args, **s_kw)
+    finally:
+        _BODIES.remove(bodies)
     seconds = time.perf_counter() - t0
     pool = torch.cuda.max_memory_allocated(device) - before
-    return CapturedRun(fn, graph, (s_args, s_kw), out, seconds, pool)
+    return CapturedRun(fn, graph, (s_args, s_kw), out, seconds, pool,
+                       if_node.launches - nodes, bodies)

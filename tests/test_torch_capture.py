@@ -5,15 +5,27 @@ JAX package's jitted drivers.
 - ``device_cond`` takes and skips as its predicate says, returns the
   incoming state untouched when it skips, and raises ``TypeError`` (as
   ``lax.cond`` does) on a branch that changes the structure, a leaf's
-  shape or dtype, or a static leaf. Its captured form (``_select``: the
-  branch always runs, each replaced leaf ``torch.where(pred, out, in)``)
-  runs here on CPU tensors: with the predicate false the result is the
+  shape or dtype, or a static leaf. Its IF node's plain version
+  (``_select``: the branch always runs, each replaced leaf
+  ``torch.where(pred, out, in)``) runs here on CPU tensors: with the
+  predicate false the result is the
   incoming state bit for bit, with it true the branch's result, and
   either way every replaced leaf is a fresh tensor and no incoming or
   outside tensor is written (values and ``data_ptr`` checks), views and
   expanded tensors included, on object motion's resample + MH branch, the
   SV filter's resample + move-reweight branch and tempered SMC's
   resample + two MH sweeps.
+- The IF node's body logic (``_if_form``) runs here on a stand-in node:
+  the THEN body as a capture records it, then, for a false predicate,
+  the buffers poisoned and the ELSE body alone, as a replay runs it. On
+  the same three branches and both predicates the result is bit-equal
+  to ``_select``'s, no incoming tensor is written, the leaves the branch
+  kept are the incoming objects and the others fresh buffers; a changed
+  structure, shape, dtype or static leaf raises ``TypeError`` there too.
+  ``device_cond`` takes the IF form under a capture, the select under
+  ``_select_form`` (restored on exit and on error) and in the warm-up,
+  and refuses a capture that ``capture`` did not make;
+  ``ops/graph_cond.py`` raises on a CPU tensor, with no fallback.
 - ``run_particle_filter`` (the SV model with move-reweight),
   ``tempered_smc`` (``run_tempered_smc``) and ``object_motion_filter_impl``
   are bit-equal, leaf for leaf, to a copy of the host-``if`` loop they had
@@ -385,6 +397,174 @@ def test_captured_form_selects_the_sv_and_tempered_branches(case, take):
     _unwritten(snap)
     _fresh_leaves(out, state)
     _assert_bit_equal(out, branch(state) if take else state)
+
+
+# ---------------------------------------------------------------------------
+# The IF node's bodies (_if_form) on a stand-in node
+# ---------------------------------------------------------------------------
+
+class _StandInNode:
+    """The card's IF node on the CPU: ``then`` runs the THEN body's work
+    as a capture records it (whatever the predicate), ``otherwise`` keeps
+    the ELSE body's for :func:`_if_eager` to run as a replay would."""
+
+    def __init__(self):
+        self.buffers, self.else_body = [], None
+
+    def alloc(self, x):
+        buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        self.buffers.append(buf)
+        return buf
+
+    def then(self, fn):
+        fn()
+
+    def otherwise(self, fn):
+        self.else_body = fn
+
+
+def _poison(buf):
+    """Overwrite every element of ``buf`` with a value it did not hold."""
+    if buf.dtype == torch.bool:
+        buf.logical_not_()
+    elif buf.is_floating_point():
+        buf.fill_(float("nan"))
+    else:
+        buf.bitwise_not_()
+
+
+def _if_eager(take, branch, state):
+    """``_if_form`` on a stand-in node, replayed: the THEN body's result
+    where ``take``, else the buffers poisoned and the ELSE body run
+    alone, so it must write every buffer itself."""
+    node = _StandInNode()
+    out = cap._if_form(node, branch, state)
+    if not take:
+        for buf in node.buffers:
+            _poison(buf)
+        node.else_body()
+    return out, node
+
+
+def _om_branch_case(method):
+    state, _ = _om_state()
+    steps = torch.arange(T_OM)
+
+    def branch(s):
+        s = tg.pf_resample(_gen(7), s, method, check=False)
+        sel = tg.Selection({("moving",): steps == 4, ("y",): steps == 4})
+        return tg.pf_rejuvenate(_gen(8), s, tg.mh, (sel,), window=2)
+    return state, branch
+
+
+_BRANCH_CASES = {"om systematic": lambda: _om_branch_case("systematic"),
+                 "om residual": lambda: _om_branch_case("residual"),
+                 "sv": _sv_branch_case, "tempered": _tempered_branch_case}
+
+
+@pytest.mark.parametrize("take", [False, True])
+@pytest.mark.parametrize("case", sorted(_BRANCH_CASES))
+def test_if_form_matches_the_select_form(case, take):
+    """Object motion's, the SV filter's and tempered SMC's branches: the
+    IF node's bodies give ``_select``'s result bit for bit, write no
+    incoming tensor, keep the leaves the branch kept as the incoming
+    objects and put every other in a fresh buffer of its own."""
+    state, branch = _BRANCH_CASES[case]()
+    snap = _snapshot(state)
+    want = cap._select(torch.tensor(take), branch, state)
+    out, node = _if_eager(take, branch, state)
+    _unwritten(snap)
+    _assert_bit_equal(out, want)
+    in_leaves = tree_flatten(state)[0]
+    kept = [o is x for x, o in zip(in_leaves, tree_flatten(branch(state))[0])]
+    out_leaves = tree_flatten(out)[0]
+    assert any(kept) and not all(kept)
+    bufs = {id(b) for b in node.buffers}
+    for x, o, k in zip(in_leaves, out_leaves, kept):
+        if k:
+            assert o is x
+        elif isinstance(o, torch.Tensor):
+            assert id(o) in bufs
+    assert len(bufs) == sum(isinstance(o, torch.Tensor) and not k
+                            for o, k in zip(out_leaves, kept))
+    _fresh_leaves(out, state)
+
+
+@pytest.mark.parametrize("kind", sorted(_bad_branches()))
+def test_if_form_raises_on_a_changed_state(kind):
+    state, _ = _om_state()
+    with pytest.raises(TypeError, match="device_cond"):
+        _if_eager(False, _bad_branches()[kind], state)
+
+
+def _as_if_capturing(monkeypatch):
+    """``device_cond`` as under ``capture``: the captured form taken for
+    a CPU predicate, and each IF node a stand-in (``nodes`` lists them)."""
+    nodes = []
+
+    def card_node(pred, bodies):
+        nodes.append(_StandInNode())
+        return nodes[-1]
+    monkeypatch.setattr(cap, "_graph_form", lambda pred: True)
+    monkeypatch.setattr(cap, "_CardNode", card_node)
+    monkeypatch.setattr(cap, "_BODIES", [object()])
+    return nodes
+
+
+def test_device_cond_takes_the_if_form_under_a_capture(monkeypatch):
+    """Under a capture ``device_cond`` makes one IF node per call; under
+    ``_select_form`` and in the warm-up it selects; both forms return the
+    branch's result for a true predicate."""
+    state, branch = _om_branch_case("systematic")
+    nodes = _as_if_capturing(monkeypatch)
+    want = branch(state)
+    _assert_bit_equal(tg.device_cond(torch.tensor(True), branch, state), want)
+    assert len(nodes) == 1
+    with cap._select_form():
+        _assert_bit_equal(tg.device_cond(torch.tensor(True), branch, state),
+                          want)
+    with cap._warming():
+        tg.device_cond(torch.tensor(True), branch, state)
+    assert len(nodes) == 1
+    tg.device_cond(torch.tensor(True), branch, state)
+    assert len(nodes) == 2
+
+
+def test_select_form_is_restored_on_exit_and_on_error(monkeypatch):
+    state, branch = _om_branch_case("systematic")
+    nodes = _as_if_capturing(monkeypatch)
+    with cap._select_form():
+        with cap._select_form():
+            tg.device_cond(torch.tensor(False), branch, state)
+        tg.device_cond(torch.tensor(False), branch, state)
+    assert cap._SELECTING == [0] and not nodes
+    with pytest.raises(ZeroDivisionError):
+        with cap._select_form():
+            1 / 0
+    assert cap._SELECTING == [0]
+    tg.device_cond(torch.tensor(False), branch, state)
+    assert len(nodes) == 1
+
+
+def test_device_cond_refuses_a_capture_it_did_not_make(monkeypatch):
+    state, branch = _om_branch_case("systematic")
+    monkeypatch.setattr(cap, "_graph_form", lambda pred: True)
+    with pytest.raises(RuntimeError, match="capture"):
+        tg.device_cond(torch.tensor(True), branch, state)
+
+
+def test_graph_cond_raises_on_a_cpu_tensor():
+    """The shim reads its predicate on the card: a CPU or meta tensor, or a
+    Python bool, raises before anything is built, and no node is
+    counted."""
+    from genparticlefilters_tpu_torch.ops import graph_cond
+    before = graph_cond.if_node.launches
+    for pred in (torch.tensor(True), torch.ones((), dtype=torch.bool,
+                                                device="meta"), True):
+        with pytest.raises(ValueError, match="on the card"):
+            graph_cond.if_node(pred)
+    assert graph_cond.if_node.launches == before
+    assert graph_cond.CAPTURE_MODE == 0    # cudaStreamCaptureModeGlobal
 
 
 # ---------------------------------------------------------------------------

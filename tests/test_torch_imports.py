@@ -36,7 +36,7 @@ def test_every_module_imports():
                  "smc.translate", "utils.stratification",
                  "models.stochastic_volatility", "models.tempered",
                  "utils.device", "utils.checkpoint", "utils.profiling",
-                 "config", "smc.capture"):
+                 "config", "smc.capture", "ops.graph_cond"):
         assert f"genparticlefilters_tpu_torch.{name}" in names
     for name in names:
         importlib.import_module(name)
@@ -98,9 +98,9 @@ def test_new_modules_import_without_jax_or_triton():
     utils/stratification, utils/device, utils/checkpoint,
     utils/profiling, config, core/batching, core/gfi and core/combinators
     (with MapCombinator), interop, the multi-object, stochastic-volatility
-    and tempered models, parallel (with the mesh) and smc/capture (with the
-    object-motion model's compiled driver) import in a fresh interpreter
-    where jax and triton cannot be imported."""
+    and tempered models, parallel (with the mesh), smc/capture (with the
+    object-motion model's compiled driver) and ops/graph_cond import in a
+    fresh interpreter where jax and triton cannot be imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -136,6 +136,8 @@ def test_new_modules_import_without_jax_or_triton():
         "from genparticlefilters_tpu_torch import MapCombinator, propose\n"
         "import genparticlefilters_tpu_torch.smc.capture\n"
         "from genparticlefilters_tpu_torch import device_cond, capture\n"
+        "from genparticlefilters_tpu_torch.ops.graph_cond import (\n"
+        "    if_node, capture_body, versions)\n"
         "from genparticlefilters_tpu_torch.models.object_motion import (\n"
         "    object_motion_filter_impl, object_motion_filter_captured,\n"
         "    obs_at_t)\n"
