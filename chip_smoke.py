@@ -22,11 +22,17 @@ non-zero and no result line is printed):
    also at a 1026-row pack; G4 also at skewed inputs: degenerate weights,
    all-equal u, n or m = 1, m = 4n and n = 4m, m = 0; G3's row mode at
    widths 1-16, a view off a 16-byte boundary, M = N/4 and 4N, extreme
-   bit patterns); graph_cond: a toy device_cond on a state of three
-   1M-element leaves (the branch draws) captured as an IF node and as the
+   bit patterns); graph_cond: a donating toy device_cond on a state of
+   three 1M-element leaves (the branch draws) in three forms (the state
+   made in the run: one body, both replaced leaves donated; the static
+   inputs themselves: both buffered behind an ELSE body; a kept static
+   input: an empty ELSE body), each captured as an IF node and as the
    select, replayed with the predicate flipped through its input buffer,
    every replay bit-equal to the select's from one seed, to the eager run
-   where taken and to the incoming state where not;
+   where taken and to the incoming state where not; copy_leaves (the IF
+   bodies' one copy kernel) bit-equal to its plain version on the
+   headline's 8 replaced leaves at N=100K and 1M, on views off a 16-byte
+   boundary with odd byte counts, and on 130 leaves (two launches);
 4. main path: the object-motion filter at N=100K, T=10, systematic
    resampling, on cuda — G1's launch count must rise during the run — then
    the posterior against exact enumeration over 4 seeds;
@@ -128,32 +134,43 @@ non-zero and no result line is printed):
    torch.distributed call;
 4x. (run last, after phases 5 and 6) the compiled drivers
    (smc/capture.py): each filter run captured once as a CUDA graph, each
-   ESS branch an IF node with an ELSE body (csrc/graph_cond.cu: only the
-   taken body runs, the predicate read on the card), and captured again
-   in the select form (the branch always runs, its leaves chosen by
+   ESS branch an IF node that donates the state (csrc/graph_cond.cu: only
+   the taken body runs, the predicate read on the card, and a taken
+   branch's result is written back into the state by one copy_leaves
+   launch), captured again in the buffered form (capture's private
+   ``_buffered_form``: every replaced leaf copied into a buffer, by THEN
+   from the result and by an ELSE body from the incoming leaf) and in the
+   select form (the branch always runs, its leaves chosen by
    torch.where) as the yardstick; replayed: the headline at N=100K and
    1M, T=10, systematic (G1 a node in the THEN body) and residual (G2
    count + G1), config 2 (the linear-Gaussian filter, N=10K, T=8), 4k SV
    (99 branches), 4l tempered (49 branches) and config 5's filter (MOT
    K=4, N=1M, T=10, no resizes). Each cell: (a) with every branch forced
-   (ess_frac 1.5) the IF replay from a fresh seed bit-equal, leaf for
-   leaf, to the eager run from that seed, and two replays from one seed
-   to each other; (g) the IF replay bit-equal to the select replay from
-   one seed, forced and at the default ess_frac; at the default ess_frac
-   (f) each form's capture time and pool memory, the kernels captured as
-   graph nodes and the IF nodes per graph, which must equal the ESS
-   checks per run (9, 9, 7, 99, 49, 9), (b) the eager cell's gate on IF
-   replays (the registered generator reseeded before each): exact
-   enumeration over 4 seeds, the Kalman filter, the bootstrap LML, the
-   quadrature log Z, config 5's posterior means; (c) 0 host syncs per
-   replay (the eager run's printed beside); (e) ms/run of the IF replay,
-   the select replay and the eager run in turns, median of 5; (d) one
-   profiled run of each, after a profiled warm-up run: kernels, device
-   busy ms and idle share, failing
-   where the IF replay shows no device time or no G1 (G2) kernel, the IF
-   replay profiled from the first seed of 971-986 whose replay resampled;
-   the forced checks come last in a cell, with each form's profiled busy
-   ms. Every captured run is kept until 4x ends (once a graph is
+   (ess_frac 1.5) the donated replay from a fresh seed bit-equal, leaf
+   for leaf, to the eager run from that seed, and two replays from one
+   seed to each other; (g) the donated replay bit-equal to the buffered
+   and select replays from one seed, forced and at the default ess_frac;
+   at the default ess_frac (f) each form's capture time and pool memory,
+   the kernels captured as graph nodes, the IF nodes per graph, which
+   must equal the ESS checks per run (9, 9, 7, 99, 49, 9), those with an
+   ELSE body and the leaves donated and buffered, (b) the eager cell's
+   gate on donated replays (the registered generator reseeded before
+   each): exact enumeration over 4 seeds, the Kalman filter, the
+   bootstrap LML, the quadrature log Z, config 5's posterior means; (c)
+   0 host syncs per donated and buffered replay (the eager run's printed
+   beside); (e) ms/run of the donated, buffered and select replays and
+   the eager run in turns, median of 5; (d) one profiled run of each,
+   after a profiled warm-up run: kernels, device busy ms, idle share,
+   busy over the eager run's and the kernels whose device time differs
+   most (of two profiled runs the one with the most kernels: a profile
+   drops records), failing where the donated replay shows no device time
+   or no G1 (G2) kernel, or where a profiled IF replay's copy_leaves runs
+   (counted on the card by the kernel itself) differ from its taken
+   checks (each IF node's predicate as the replay read it) plus, untaken,
+   its nodes that buffer, the replays profiled from the first seed of
+   971-986 whose donated replay resampled; the forced
+   checks come last in a cell, with each form's profiled busy ms. Every
+   captured run is kept until 4x ends (once a graph is
    destroyed the profiler names the kernels in a later graph's IF bodies
    after the destroyed graph's); the last cell frees them before its
    forced runs. Every cell runs before a failure is raised;
@@ -163,7 +180,10 @@ non-zero and no result line is printed):
    in the loop), with its bound (the bytes it must move over 3.35 TB/s)
    and its share of the bound, at N=100K and N=1M; the toy device_cond of
    phase 3 as an IF graph against its select graph, each replay one call,
-   at both predicates; G4 also at the skewed
+   at both predicates, in the donated and buffered forms; copy_leaves on
+   the headline's 8 replaced leaves at N=100K and 1M (bound: each byte
+   read once and written once) against its plain version and
+   torch._foreach_copy_; G4 also at the skewed
    inputs and G3's row mode at widths 1, 8 and 16; the whole filter per
    run at N=100K and N=1M for systematic, residual and multinomial
    resampling; the host syncs of one run (at most 9, the ESS checks); a
@@ -200,11 +220,12 @@ their LML bits as JSON (no result line).
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, a JSON line lists each kernel with its launches on
 the path that exercises it ((4) for G1, (4a) for G2, (4f) for G3's column
-mode, (4j) for its row mode, (4d) for G4, the IF nodes of 4x's headline
-capture at N=100K for graph_cond), its largest error against the plain
-version, its device time at N=100K beside its plain version's (for
-graph_cond the toy's untaken IF replay beside the select's), the library
-call's (or null) and its bound.
+mode, (4j) for its row mode, (4d) for G4, the IF nodes and copy_leaves
+launches of 4x's headline capture at N=100K for graph_cond and
+copy_leaves), its largest error against the plain version, its device
+time at N=100K beside its plain version's (for graph_cond the toy's
+untaken donated IF replay beside the select's, bound by the predicate's
+one byte), the library call's (or null) and its bound.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -279,8 +300,14 @@ KERNELS = {
                         "genparticlefilters_tpu/smc/algorithms.py:65, :112, "
                         "genparticlefilters_tpu/models/object_motion.py:107 "
                         "(lax.cond; not a TPU kernel)"),
+    # the IF node's copy: lax.cond's result in its dead operand's buffers
+    "copy_leaves (CL)": (CSRC + "graph_cond.cu",
+                         "genparticlefilters_tpu/smc/algorithms.py:65, :112, "
+                         "genparticlefilters_tpu/models/object_motion.py:107"
+                         " (lax.cond's result written into its operand's "
+                         "buffers; not a TPU kernel)"),
 }
-G1, G2, G3, G3R, G4, GC = KERNELS
+G1, G2, G3, G3R, G4, GC, CL = KERNELS
 N_TOY = 1 << 20                 # phase 3's device_cond state: 1M per leaf
 # every captured run, kept until 4x ends: once a graph is destroyed, the
 # profiler names the kernels in a later graph's IF bodies after the
@@ -309,11 +336,12 @@ def _wrappers():
         resample_gather_split, resample_gather_split_u)
     from genparticlefilters_tpu_torch.ops.gather import (gather_cols,
                                                          gather_rows)
-    from genparticlefilters_tpu_torch.ops.graph_cond import if_node
+    from genparticlefilters_tpu_torch.ops.graph_cond import (copy_leaves,
+                                                             if_node)
     from genparticlefilters_tpu_torch.ops.merge_count import merge_count
     return dict(zip(KERNELS, (resample_gather_split, resample_gather_split_u,
                               gather_cols, gather_rows, merge_count,
-                              if_node)))
+                              if_node, copy_leaves)))
 
 
 def _capture_module():
@@ -680,25 +708,41 @@ def _check_G3(dev, gen):
     return max_err["cols"], max_err["rows"]
 
 
-def _toy_cond(gen, pred, x, k, z):
-    """One device_cond over a state of three [N_TOY] leaves and a static
-    one: the branch replaces x (drawing N_TOY uniforms) and k and keeps z;
-    the run draws four more after it."""
+TOY_FORMS = {
+    # state as given (static inputs: every replaced leaf buffered, ELSE)
+    "buffered": lambda x, k, z: (x, k, z),
+    # state made in the run: every leaf donated, no ELSE body
+    "donated": lambda x, k, z: (x * 1, k * 1, z * 1),
+    # z, a static input the branch keeps, cannot be donated: an ELSE body
+    # with nothing to copy
+    "empty ELSE": lambda x, k, z: (x * 1, k * 1, z),
+}
+# (IF nodes with an ELSE body, donated leaves, buffered leaves)
+TOY_WANT = {"buffered": (1, 0, 2), "donated": (0, 2, 0),
+            "empty ELSE": (1, 2, 0)}
+
+
+def _toy_cond(gen, pred, x, k, z, form="donated"):
+    """One donating device_cond over a state of three [N_TOY] leaves, made
+    from the inputs as ``TOY_FORMS[form]`` says, and a static one: the
+    branch replaces x (drawing N_TOY uniforms) and k and keeps z; the run
+    draws four more after it."""
     from genparticlefilters_tpu_torch import device_cond
 
     def branch(s):
         x_, k_, z_, tag = s
         return (x_ * 2 + torch.rand(x_.shape, generator=gen,
                                     device=x_.device), k_ + 3, z_, tag)
-    out = device_cond(pred, branch, (x, k, z, 7))
+    out = device_cond(pred, branch, TOY_FORMS[form](x, k, z) + (7,),
+                      donate=True)
     return out, torch.rand(4, generator=gen, device=x.device)
 
 
-def _toy_runs():
+def _toy_runs(form):
     """(IF run, select run, their generators, the inputs): ``_toy_cond``
-    captured as it ships, an IF node, and through capture's private
-    ``_select_form`` as the select; each takes the predicate through its
-    static input buffer."""
+    in ``form`` captured as it ships, an IF node, and through capture's
+    private ``_select_form`` as the select; each takes the predicate
+    through its static input buffer."""
     from genparticlefilters_tpu_torch import capture
     g = _gen(3)
     inputs = (torch.tensor(True, device="cuda"),
@@ -707,43 +751,122 @@ def _toy_runs():
                             dtype=torch.int32),
               torch.randn(N_TOY, generator=g, device="cuda"))
     g_if, g_sel = _gen(0), _gen(0)
-    run = capture(_toy_cond, g_if, *inputs)
+    run = capture(_toy_cond, g_if, *inputs, form=form)
     with _capture_module()._select_form():
-        sel = capture(_toy_cond, g_sel, *inputs)
+        sel = capture(_toy_cond, g_sel, *inputs, form=form)
     return run, sel, g_if, g_sel, inputs
 
 
 def _check_graph_cond():
-    """The IF node against its plain version: the toy captured both ways,
-    replayed with the predicate flipped through its input buffer, each
-    replay bit-equal to the select's from the same seed; taken, both equal
-    the eager run; untaken, the state comes back as it went in."""
-    run, sel, g_if, g_sel, (_, x, k, z) = _toy_runs()
-    if (run.nodes, sel.nodes) != (1, 0):
-        raise AssertionError(f"graph_cond: {run.nodes} IF nodes captured "
-                             f"(want 1), {sel.nodes} in the select form")
+    """The IF node against its plain version, in each toy form (one body;
+    an ELSE body that copies; an ELSE body left empty): captured both
+    ways, replayed with the predicate flipped through its input buffer,
+    each replay bit-equal to the select's from the same seed; taken, both
+    equal the eager run; untaken, the state comes back as it went in."""
     err = 0.0
-    for p in (True, False, False, True):
-        pred = torch.tensor(p)
-        g_if.manual_seed(5)
-        a = run(pred)
-        g_sel.manual_seed(5)
-        b = sel(pred)
-        want = (_toy_cond(_gen(5), pred.cuda(), x, k, z) if p
-                else ((x, k, z, 7), a[1]))
-        torch.cuda.synchronize()
-        err = max([err] + [float((u.double() - v.double()).abs().max())
-                           for u, v in zip(a[0][:3], b[0][:3])])
-        diff = _bit_equal(a, b) or _bit_equal(a, want)
-        print(f"[3 graph_cond] predicate {p} through the input buffer, seed "
-              f"5, state 3 x [{N_TOY}]: IF replay "
-              f"{'bit-equal' if diff is None else 'differs at ' + diff} to "
-              f"the select replay and to "
-              f"{'the eager run' if p else 'the incoming state'}")
-        if diff is not None:
-            raise AssertionError(f"graph_cond differs: predicate {p}, {diff}")
-    _KEPT.extend((run, sel))
+    for form, want_forms in TOY_WANT.items():
+        run, sel, g_if, g_sel, (_, x, k, z) = _toy_runs(form)
+        forms = run.forms
+        got = (forms["else_nodes"], forms["donated"], forms["buffered"])
+        print(f"[3 graph_cond] toy form {form!r}: {run.nodes} IF node, "
+              f"{got[0]} with an ELSE body, {got[1]} leaves donated, "
+              f"{got[2]} buffered")
+        if (run.nodes, sel.nodes) != (1, 0) or got != want_forms:
+            raise AssertionError(
+                f"graph_cond {form!r}: {run.nodes} IF nodes captured (want "
+                f"1), {sel.nodes} in the select form, (ELSE nodes, donated, "
+                f"buffered) {got} (want {want_forms})")
+        for p in (True, False, False, True):
+            pred = torch.tensor(p)
+            g_if.manual_seed(5)
+            a = run(pred)
+            g_sel.manual_seed(5)
+            b = sel(pred)
+            want = (_toy_cond(_gen(5), pred.cuda(), x, k, z, form) if p
+                    else ((x, k, z, 7), a[1]))
+            torch.cuda.synchronize()
+            err = max([err] + [float((u.double() - v.double()).abs().max())
+                               for u, v in zip(a[0][:3], b[0][:3])])
+            diff = _bit_equal(a, b) or _bit_equal(a, want)
+            print(f"[3 graph_cond] {form!r}, predicate {p} through the "
+                  f"input buffer, seed 5, state 3 x [{N_TOY}]: IF replay "
+                  f"{'bit-equal' if diff is None else 'differs at ' + diff}"
+                  f" to the select replay and to "
+                  f"{'the eager run' if p else 'the incoming state'}")
+            if diff is not None:
+                raise AssertionError(f"graph_cond {form!r} differs: "
+                                     f"predicate {p}, {diff}")
+        _KEPT.extend((run, sel))
     return err
+
+
+def _leaf_set(n, dev, gen):
+    """The 8 leaves the headline's ESS branch replaces at N = n: the
+    [40, n] int32 store, three [n] float32, an [n] bool, an [n] int32, a
+    [10] float32 and a float32 scalar (177 bytes per particle)."""
+    shapes = ([((40, n), torch.int32)] + [((n,), torch.float32)] * 3
+              + [((n,), torch.bool), ((n,), torch.int32),
+                 ((10,), torch.float32), ((), torch.float32)])
+    return [torch.rand(shape, generator=gen, device=dev) < 0.5
+            if dtype == torch.bool else
+            torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                          device=dev, dtype=torch.int32).view(dtype)
+            for shape, dtype in shapes]
+
+
+def _bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _copy_cases(dev, gen):
+    """(label, srcs) for copy_leaves: the headline's leaf set at 100K and
+    1M; views off a 16-byte boundary (4-, 2- and 1-byte units) and odd
+    byte counts; 130 small leaves (two launches); an empty leaf."""
+    big = torch.randint(-2**31, 2**31 - 1, (1 << 20,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    odd = [big[1:100_001], big.view(torch.int16)[1:200_003],
+           big.view(torch.uint8)[3:300_004], big.view(torch.uint8)[:13],
+           big.view(torch.int64)[1:50_001], big[:0]]
+    many = [torch.randn(i + 1, generator=gen, device=dev)
+            for i in range(130)]
+    return [(f"headline leaf set N={n}", _leaf_set(n, dev, gen))
+            for n in (N_MAIN, 1_000_000)] + [
+        ("misaligned views and odd sizes", odd), ("130 leaves", many)]
+
+
+def _check_copy_leaves(dev, gen):
+    """copy_leaves against copy_leaves_plain on each case, bit for bit
+    (byte views compared), with its launches counted, by the wrapper and
+    by the kernel's own counter on the card."""
+    from genparticlefilters_tpu_torch.ops.graph_cond import (
+        copy_leaves, copy_leaves_plain, copy_leaves_runs)
+    copy_leaves_runs(reset=True)
+    first = copy_leaves.launches
+    for label, srcs in _copy_cases(dev, gen):
+        got = [torch.empty_like(s) for s in srcs]
+        want = [torch.empty_like(s) for s in srcs]
+        for t in got + want:
+            _bytes(t).fill_(0xA5)
+        before = copy_leaves.launches
+        copy_leaves(got, srcs)
+        copy_leaves_plain(want, srcs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(_bytes(a), _bytes(b))
+                   for a, b in zip(got, want))
+        nbytes = sum(s.numel() * s.element_size() for s in srcs)
+        print(f"[3 copy_leaves] {label}: {len(srcs)} leaves, "
+              f"{nbytes / 1e6:.3f} MB, {copy_leaves.launches - before} "
+              f"launches: {'bit-equal' if same else 'DIFFERS'} to the "
+              f"plain version")
+        if not same:
+            raise AssertionError(f"copy_leaves differs on {label}")
+    launched, ran = copy_leaves.launches - first, copy_leaves_runs()
+    print(f"[3 copy_leaves] launches counted by the wrapper {launched}, "
+          f"runs counted by the kernel on the card {ran}")
+    if ran != launched:
+        raise AssertionError(f"copy_leaves: {launched} launches, {ran} "
+                             f"runs counted on the card")
+    return 0.0
 
 
 def phase_kernel_vs_plain():
@@ -752,7 +875,8 @@ def phase_kernel_vs_plain():
     torch.manual_seed(0)
     return dict(zip(KERNELS, (_check_G1(dev, gen), _check_G2(dev, gen),
                               *_check_G3(dev, gen), _check_G4(dev, gen),
-                              _check_graph_cond())))
+                              _check_graph_cond(),
+                              _check_copy_leaves(dev, gen))))
 
 
 def _data():
@@ -2831,28 +2955,56 @@ def _bit_equal(a, b):
     return None
 
 
-def _x_capture_both(fn, args, kw, seed):
-    """(IF run, its generator, select run, its generator): ``fn`` captured
-    as it ships, each device_cond an IF node, and through capture's
-    private ``_select_form`` with each a device select, both on
-    generators seeded ``seed``."""
+X_FORMS = ("donated", "buffered", "select")
+
+
+def _x_capture_forms(fn, args, kw, seed):
+    """({form: (run, its generator)}, the launch counts of the first
+    capture): ``fn`` captured as it ships (each device_cond an IF node that
+    donates the state), under capture's private ``_buffered_form`` (every
+    replaced leaf buffered, each node with an ELSE body) and under
+    ``_select_form`` (each a device select), each on a generator seeded
+    ``seed``; the counts are set to 0 just before the first capture and
+    read just after it."""
     from genparticlefilters_tpu_torch import capture
-    gen, gen_sel = _gen(seed), _gen(seed)
-    run = capture(fn, gen, *args, **kw)
-    with _capture_module()._select_form():
-        sel = capture(fn, gen_sel, *args, **kw)
-    return run, gen, sel, gen_sel
+    cm = _capture_module()
+    forms = {"donated": contextlib.nullcontext,
+             "buffered": cm._buffered_form, "select": cm._select_form}
+    runs, counts = {}, None
+    _reset_counts()
+    for form, ctx in forms.items():
+        gen = _gen(seed)
+        with ctx():
+            runs[form] = (capture(fn, gen, *args, **kw), gen)
+        torch.cuda.synchronize()
+        counts = counts or _counts()
+    return runs, counts
 
 
-def _x_same(run, gen, sel, gen_sel, seed):
-    """(g): the IF replay against the select replay from one seed; None
-    where bit-equal, else the first leaf that differs."""
-    gen.manual_seed(seed)
-    a = run()
-    gen_sel.manual_seed(seed)
-    b = sel()
+def _x_same(runs, seed):
+    """(g): each form's replay from one seed against the donated one's:
+    {form: None where bit-equal, else the first leaf that differs}."""
+    outs = {}
+    for form, (run, gen) in runs.items():
+        gen.manual_seed(seed)
+        outs[form] = run()
     torch.cuda.synchronize()
-    return _bit_equal(a, b)
+    return {form: _bit_equal(outs["donated"], out)
+            for form, out in outs.items() if form != "donated"}
+
+
+def _x_said(diff):
+    return "bit-equal" if diff is None else "differs at " + diff
+
+
+def _x_copies(run):
+    """(taken checks, copy_leaves launches due) of the last replay of
+    ``run``: each IF node's predicate as that replay read it; a taken
+    check launches one copy (THEN), an untaken one a copy only where its
+    node buffers leaves (ELSE)."""
+    taken = [bool(n.pred) for n in run.bodies.nodes]
+    return sum(taken), sum(t or n.buffered > 0
+                           for t, n in zip(taken, run.bodies.nodes))
 
 
 X_SEEDS = range(971, 987)     # where (d) looks for a replay that resampled
@@ -2874,14 +3026,15 @@ def _x_fired_seed(run, gen, take):
 
 
 def _x_forced(label, fn, args, kw, keep, seed=970):
-    """(a) and (g) with every branch forced: the IF replay from a fresh
-    seed against the eager run from the same seed and against the select
-    replay from it, leaf for leaf, and two IF replays from one seed
-    against each other. Returns what differed, or None; the two runs go
-    into ``keep``."""
+    """(a) and (g) with every branch forced: the donated IF replay from a
+    fresh seed against the eager run from the same seed and against the
+    buffered and select replays from it, leaf for leaf, and two donated
+    replays from one seed against each other. Returns what differed, or
+    None; the runs go into ``keep``."""
     kw = dict(kw, ess_frac=X_FORCE)
-    run, gen, sel, gen_sel = _x_capture_both(fn, args, kw, 0)
-    keep += [run, sel]
+    runs, _ = _x_capture_forms(fn, args, kw, 0)
+    keep += [r for r, _ in runs.values()]
+    run, gen = runs["donated"]
     eager = fn(_gen(seed), *args, **kw)
     gen.manual_seed(seed)
     first = run()
@@ -2889,46 +3042,66 @@ def _x_forced(label, fn, args, kw, keep, seed=970):
     second = run()
     torch.cuda.synchronize()
     vs_eager, vs_replay = _bit_equal(first, eager), _bit_equal(first, second)
-    vs_select = _x_same(run, gen, sel, gen_sel, seed)
-    # every body taken: the IF replay does the select's work, so the
+    vs = _x_same(runs, seed)
+    # every body taken: each IF replay does the select's work, so the
     # profiler must see as much device time in it (the kernels inside
     # the THEN bodies included)
-    busy = {k: _x_profile(r)[1] for k, r in (("IF", run), ("select", sel))}
+    prof = {form: _x_profile(r) for form, (r, _) in runs.items()}
+    busy = {form: p[1] for form, p in prof.items()}
     print(f"[4x {label} (a), (g)] every branch forced (ess_frac {X_FORCE}), "
-          f"seed {seed}: IF replay against eager "
-          f"{'bit-equal' if vs_eager is None else 'differs at ' + vs_eager}"
-          f"; two IF replays "
-          f"{'bit-equal' if vs_replay is None else 'differ at ' + vs_replay}"
-          f"; IF replay against the select replay "
-          f"{'bit-equal' if vs_select is None else 'differs at ' + vs_select}"
-          f"; profiled device busy IF {busy['IF']:.3f} ms, select "
-          f"{busy['select']:.3f} ms")
-    if vs_eager is not None or vs_replay is not None or vs_select is not None:
-        return (f"4x {label} (a)/(g) forced: IF replay against eager "
-                f"{vs_eager}, against IF replay {vs_replay}, against the "
-                f"select replay {vs_select}")
+          f"seed {seed}: donated IF replay against eager "
+          f"{_x_said(vs_eager)}; two donated replays {_x_said(vs_replay)}; "
+          f"against the buffered replay {_x_said(vs['buffered'])}, the "
+          f"select replay {_x_said(vs['select'])}; profiled device busy "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in busy.items())
+          + "; " + _x_where(prof, "donated", "select"))
+    if vs_eager or vs_replay or vs["buffered"] or vs["select"]:
+        return (f"4x {label} (a)/(g) forced: donated replay against eager "
+                f"{vs_eager}, against a donated replay {vs_replay}, against "
+                f"the buffered replay {vs['buffered']}, against the select "
+                f"replay {vs['select']}")
     return None
 
 
-def _x_profile(run, reseed=lambda: None):
-    """One run under torch.profiler, after a profiled warm-up run (the
-    first profile of a cell in a long process lost a third of the
-    replay's kernels once: 1,206 of the headline's ~1,980): (kernels,
-    device busy ms, {kernel name: count}). ``reseed`` runs before each."""
+def _x_profile(run, reseed=lambda: None, tries=2):
+    """One run under torch.profiler: of ``tries`` profiled runs after a
+    profiled warm-up run, the one with the most kernels (a profile in a
+    long process drops records: once a third of the replay's kernels,
+    1,206 of the headline's ~1,980, once all but 4 of config 2's):
+    (kernels, device busy ms, {kernel name: count}, {kernel name: busy
+    ms}). ``reseed`` runs before each run."""
     from torch.profiler import profile, ProfilerActivity
-    for _ in range(2):
+    cuda = torch.autograd.DeviceType.CUDA
+    best = None
+    for i in range(tries + 1):
         reseed()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             run()
             torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [e for e in prof.key_averages() if e.device_type == cuda
-            and not e.key.startswith(SPANS)]
-    return (sum(e.count for e in kern),
-            sum(e.self_device_time_total for e in kern) / 1e3,
-            {e.key: e.count for e in kern})
+        if i == 0:
+            continue
+        kern = [e for e in prof.key_averages() if e.device_type == cuda
+                and not e.key.startswith(SPANS)]
+        got = (sum(e.count for e in kern),
+               sum(e.self_device_time_total for e in kern) / 1e3,
+               {e.key: e.count for e in kern},
+               {e.key: e.self_device_time_total / 1e3 for e in kern})
+        if best is None or got[0] > best[0]:
+            best = got
+    return best
+
+
+def _x_where(prof, a, b, top=6):
+    """Where the device time of profile ``a`` differs from ``b``'s: the
+    ``top`` kernel names by |busy ms a - b|, with their counts."""
+    pa, pb = prof[a], prof[b]
+    names = sorted(set(pa[3]) | set(pb[3]), key=lambda n: -abs(
+        pa[3].get(n, 0.0) - pb[3].get(n, 0.0)))[:top]
+    return f"{a} - {b} by kernel: " + "; ".join(
+        f"{n.split('(')[0][:40]} {pa[3].get(n, 0.0) - pb[3].get(n, 0.0):+.4f}"
+        f" ms (x{pa[2].get(n, 0)} / x{pb[2].get(n, 0)})" for n in names)
 
 
 def _x_turns(fns, reps=5):
@@ -2949,87 +3122,129 @@ def _x_turns(fns, reps=5):
 
 def _x_cell(label, fn, args, kw, need, checks, gate, card, keep, last,
             take=lambda out: out):
-    """One 4x cell: at the default ess_frac the capture in both forms
+    """One 4x cell: at the default ess_frac the capture in the three forms
     (time, pool memory, the kernels captured as graph nodes, the IF nodes:
-    one per ESS check), (g) the IF replay bit-equal to the select replay
-    from one seed, (b) the eager cell's gate on IF replays, (c) host syncs
-    per IF replay against the eager run's, (e) ms/run of the IF replay,
-    the select replay and the eager run in turns, (d) one profiled run of
-    each, the IF replay's showing device time and each kernel of
-    ``need``; then (a) and (g) forced. Returns the launch counts at the IF
-    capture. Every captured run goes into ``keep``; the ``last`` cell
-    empties it before its forced runs, since no profile follows."""
-    _reset_counts()
-    run, gen, sel, gen_sel = _x_capture_both(fn, args, kw, 1)
-    keep += [run, sel]
-    torch.cuda.synchronize()
-    counts = _counts()
-    missing = [k for k in need if counts[k] < 1]
+    one per ESS check; those with an ELSE body, the leaves donated and
+    buffered), (g) the donated IF replay bit-equal to the buffered and
+    select replays from one seed, (b) the eager cell's gate on donated
+    replays, (c) host syncs per IF replay against the eager run's, (e)
+    ms/run of the donated, buffered and select replays and the eager run
+    in turns, (d) one profiled run of each, the donated replay's showing
+    device time, each kernel of ``need`` and as many copy_leaves kernels as
+    its checks call for (one per taken check, plus one per untaken check
+    whose node buffers); then (a) and (g) forced. Returns the launch
+    counts at the donated capture. Every captured run goes into ``keep``;
+    the ``last`` cell empties it before its forced runs, since no profile
+    follows."""
+    from genparticlefilters_tpu_torch.ops.graph_cond import copy_leaves_runs
+    runs, counts = _x_capture_forms(fn, args, kw, 1)
+    keep += [r for r, _ in runs.values()]
+    run, gen = runs["donated"]
+    missing = [k for k in need + (GC, CL) if counts[k] < 1]
     if missing:
         raise AssertionError(f"4x {label}: {missing} not captured")
-    print(f"[4x {label} (f)] IF form captured in "
-          f"{run.capture_seconds * 1e3:.1f} ms, pool "
-          f"{run.pool_bytes / 2**20:.1f} MiB; select form "
-          f"{sel.capture_seconds * 1e3:.1f} ms, "
-          f"{sel.pool_bytes / 2**20:.1f} MiB (warm-up not counted; pool: "
-          f"torch.cuda.max_memory_allocated past what was allocated "
-          f"before); IF nodes per graph {run.nodes} ({checks} ESS checks "
-          f"per run); kernel launches in the captures' warm-ups and "
-          f"captures (one program; the captures' are graph nodes): "
-          f"{_short(counts)}")
-    if run.nodes != checks or sel.nodes != 0:
-        raise AssertionError(f"4x {label}: {run.nodes} IF nodes for "
-                             f"{checks} ESS checks, {sel.nodes} in the "
-                             f"select form")
-    vs_select = _x_same(run, gen, sel, gen_sel, 971)
-    print(f"[4x {label} (g)] ess_frac as the cell runs, seed 971: IF replay "
-          f"against the select replay "
-          f"{'bit-equal' if vs_select is None else 'differs at ' + vs_select}")
+    shape = {f: r.forms for f, (r, _) in runs.items() if f != "select"}
+    print(f"[4x {label} (f)] " + "; ".join(
+        f"{f} form captured in {r.capture_seconds * 1e3:.1f} ms, pool "
+        f"{r.pool_bytes / 2**20:.1f} MiB, IF nodes {r.nodes}"
+        + (f" (with an ELSE body {shape[f]['else_nodes']}; leaves donated "
+           f"{shape[f]['donated']}, buffered {shape[f]['buffered']})"
+           if f in shape else "") for f, (r, _) in runs.items())
+          + f" (warm-up not counted; pool: torch.cuda.max_memory_allocated "
+          f"past what was allocated before; {checks} ESS checks per run); "
+          f"kernel launches in the donated capture's warm-up and capture "
+          f"(one program; the capture's are graph nodes): {_short(counts)}")
+    if (runs["donated"][0].nodes != checks or runs["buffered"][0].nodes
+            != checks or runs["select"][0].nodes != 0
+            or shape["buffered"]["else_nodes"] != checks
+            or shape["buffered"]["donated"] != 0):
+        raise AssertionError(f"4x {label}: IF nodes donated / buffered / "
+                             f"select {[r.nodes for r, _ in runs.values()]} "
+                             f"for {checks} ESS checks; forms {shape}")
+    vs = _x_same(runs, 971)
+    print(f"[4x {label} (g)] ess_frac as the cell runs, seed 971: donated "
+          f"IF replay against the buffered replay {_x_said(vs['buffered'])}"
+          f", against the select replay {_x_said(vs['select'])}")
     gate(_reseeded(run, gen, take))
-    _, syncs = _synced(run)
+    syncs = {f: len(_synced(runs[f][0])[1]) for f in ("donated", "buffered")}
     _, eager_syncs = _synced(lambda: fn(_gen(401), *args, **kw))
-    if syncs:
-        raise AssertionError(f"4x {label}: {len(syncs)} host syncs in one "
-                             f"replay: {syncs[:6]}")
+    if any(syncs.values()):
+        raise AssertionError(f"4x {label}: host syncs per replay {syncs}")
     eager = lambda: fn(_gen(402), *args, **kw)  # noqa: E731
-    wall = _x_turns({"IF": run, "select": sel, "eager": eager})
+    wall = _x_turns({**{f: r for f, (r, _) in runs.items()},
+                     "eager": eager})
     seed = _x_fired_seed(run, gen, take)
-    prof = {"IF": _x_profile(run, lambda: gen.manual_seed(seed)),
-            "select": _x_profile(sel, lambda: gen_sel.manual_seed(seed)),
-            "eager": _x_profile(lambda: fn(_gen(seed), *args, **kw))}
+    prof, ran = {}, {}
+    for f, (r, g) in runs.items():
+        # the kernel's counter on the card, set to 0 before each run: it
+        # holds the profiled replay's copy_leaves launches after it
+        prof[f] = _x_profile(r, lambda g=g: (g.manual_seed(seed),
+                                             copy_leaves_runs(reset=True)))
+        ran[f] = copy_leaves_runs()
+    copies = {f: _x_copies(runs[f][0]) for f in ("donated", "buffered")}
+    prof["eager"] = _x_profile(lambda: fn(_gen(seed), *args, **kw))
+    launched = {f: sum(c for n, c in prof[f][2].items()
+                       if n.startswith("copy_leaves_kernel("))
+                for f in copies}
     # a profiler key is the demangled signature: "stairs_gather_kernel(...)"
     missing = [k for k in need if not any(
-        n.startswith(X_KERNELS[k] + "(") for n in prof["IF"][2])]
-    print(f"[4x {label}] (c) host syncs per IF replay {len(syncs)}, eager "
+        n.startswith(X_KERNELS[k] + "(") for n in prof["donated"][2])]
+    print(f"[4x {label}] (c) host syncs per replay, donated "
+          f"{syncs['donated']}, buffered {syncs['buffered']}, eager "
           f"{len(eager_syncs)}; (e) ms/run, median of 5 after a warm-up, in "
           f"turns (min, max); (d) one profiled run each from seed {seed}, the "
-          f"first from {X_SEEDS[0]} whose IF replay resampled: kernels, "
+          f"first from {X_SEEDS[0]} whose donated replay resampled: kernels, "
           f"device busy ms, idle share (1 - busy / median ms): " + "; ".join(
               f"{k} {wall[k][0]:.3f} ms ({wall[k][1]:.3f}, {wall[k][2]:.3f}), "
               f"{prof[k][0]} kernels, busy {prof[k][1]:.3f} ms, idle "
               f"{1 - prof[k][1] / wall[k][0]:.3f}" for k in wall)
-          + f"; eager / IF {wall['eager'][0] / wall['IF'][0]:.2f}x, select / "
-          f"IF {wall['select'][0] / wall['IF'][0]:.2f}x; card {card}")
-    kernels, busy, names = prof["IF"]
+          + "; busy over eager's: " + ", ".join(
+              f"{f} {prof[f][1] - prof['eager'][1]:+.3f} ms "
+              f"({prof[f][0] - prof['eager'][0]:+d} kernels)"
+              for f in ("donated", "buffered", "select"))
+          + f"; eager / donated {wall['eager'][0] / wall['donated'][0]:.2f}x"
+          f", buffered / donated "
+          f"{wall['buffered'][0] / wall['donated'][0]:.2f}x, select / "
+          f"donated {wall['select'][0] / wall['donated'][0]:.2f}x; card "
+          f"{card}")
+    print(f"[4x {label} (d)] copy_leaves runs in the profiled replay, "
+          f"counted on the card: " + ", ".join(
+              f"{f} {ran[f]} (taken checks {copies[f][0]} of {checks}, "
+              f"copies due {copies[f][1]}; the profiler saw {launched[f]})"
+              for f in copies) + f", select {ran['select']}"
+          + f"; {need[0].split()[0]} kernels (one per resample) "
+          + ", ".join(f"{f} {p[2].get(n, 0)}" for f, p in prof.items()
+                      for n in p[2] if n.startswith(X_KERNELS[need[0]] + "("))
+          + "; " + _x_where(prof, "donated", "eager") + "; "
+          + _x_where(prof, "donated", "buffered"))
+    kernels, busy, names, _ = prof["donated"]
     print(f"[4x {label}] device memory reserved after (d) "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB (every captured "
           f"run of 4x kept so far)")
     if last:
-        del run, sel
+        del run, runs
         keep.clear()
         gc.collect()
         torch.cuda.empty_cache()
     forced = _x_forced(label, fn, args, kw, keep)
     if busy <= 0 or missing:
-        raise AssertionError(f"4x {label}: the profiled IF replay shows "
+        raise AssertionError(f"4x {label}: the profiled donated replay shows "
                              f"{kernels} kernels, {busy:.3f} ms busy, no "
                              f"{missing} kernel: " + ", ".join(
                                  f"{n[:48]} x{c}" for n, c in names.items()))
+    wrong = {f: (ran[f], copies[f][1]) for f in copies
+             if ran[f] != copies[f][1]}
+    if wrong or ran["select"]:
+        raise AssertionError(f"4x {label}: copy_leaves runs in the "
+                             f"profiled replay against the copies due: "
+                             f"{wrong}, select {ran['select']}")
     if forced is not None:
         raise AssertionError(forced)
-    if vs_select is not None:
-        raise AssertionError(f"4x {label} (g): the IF replay differs from "
-                             f"the select replay at {vs_select}")
+    if vs["buffered"] or vs["select"]:
+        raise AssertionError(f"4x {label} (g): the donated replay differs "
+                             f"from the buffered replay at "
+                             f"{vs['buffered']}, from the select replay at "
+                             f"{vs['select']}")
     return counts
 
 
@@ -3395,22 +3610,51 @@ def _kernel_timing(n, card):
 
 
 def _graph_cond_timing(card):
-    """The toy's IF graph against its select graph, each replay one call,
-    at both predicates; returns the untaken case's numbers. The bound is
-    the function's own bytes: the two replaced leaves read once and their
-    buffers written once (the draws are made, not read)."""
-    run, sel, _, _, _ = _toy_runs()
-    nbytes = 4 * 4 * N_TOY
+    """The toy's IF graphs, donated and buffered, each against its select
+    graph, each replay one call, at both predicates; returns the donated
+    untaken case's numbers. The bound is the function's own bytes: none
+    but the predicate's byte untaken; taken, the two replaced leaves read
+    once and their results written once (the draws are made, not read)."""
     out = {}
-    for p in (True, False):
-        run(torch.tensor(p))
-        sel(torch.tensor(p))
-        out[p] = _compare_timing(
-            f"graph_cond] toy device_cond, 3 x [{N_TOY}] state, predicate "
-            f"{p}: IF graph replay as kernel, select graph replay as plain",
-            run.graph.replay, sel.graph.replay, card, nbytes)
-    _KEPT.extend((run, sel))
-    return out[False]
+    for form in ("donated", "buffered"):
+        run, sel, _, _, _ = _toy_runs(form)
+        for p in (True, False):
+            run(torch.tensor(p))
+            sel(torch.tensor(p))
+            out[form, p] = _compare_timing(
+                f"graph_cond] toy device_cond, 3 x [{N_TOY}] state, {form} "
+                f"form, predicate {p}: IF graph replay as kernel, select "
+                f"graph replay as plain", run.graph.replay, sel.graph.replay,
+                card, 4 * 4 * N_TOY if p else 1)
+        _KEPT.extend((run, sel))
+    return out["donated", False]
+
+
+def _copy_leaves_timing(n, card):
+    """copy_leaves on the headline's leaf set at n particles, held
+    bit-equal to its plain version, then timed against it and against
+    torch._foreach_copy_ (the one PyTorch call for the same copies, which
+    the port never calls); the bound is each source read once and each
+    destination written once."""
+    from genparticlefilters_tpu_torch.ops.graph_cond import (
+        copy_leaves, copy_leaves_plain)
+    dev = torch.device("cuda")
+    srcs = _leaf_set(n, dev, torch.Generator(device=dev).manual_seed(2))
+    dsts = [torch.empty_like(x) for x in srcs]
+    want = [torch.empty_like(x) for x in srcs]
+    copy_leaves(dsts, srcs)
+    copy_leaves_plain(want, srcs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(_bytes(a), _bytes(b)) for a, b in zip(dsts, want)):
+        raise AssertionError(f"copy_leaves differs from its plain version "
+                             f"on the headline's leaf set at N={n}")
+    nbytes = 2 * sum(x.numel() * x.element_size() for x in srcs)
+    return _compare_timing(
+        f"copy_leaves] N={n} the headline's 8 replaced leaves "
+        f"(bit-equal to plain), library torch._foreach_copy_",
+        lambda: copy_leaves(dsts, srcs),
+        lambda: copy_leaves_plain(dsts, srcs), card, nbytes,
+        lambda: torch._foreach_copy_(dsts, srcs))
 
 
 G3R_TIMED = [(w, kind) for w in (1, 8, 16)
@@ -3507,6 +3751,8 @@ def phase_timing(y_obs, card):
     _pp_timing(card, y_obs)
     kern_ms = _kernel_timing(N_MAIN, card)
     kern_ms[GC] = _graph_cond_timing(card)
+    kern_ms[CL] = _copy_leaves_timing(N_MAIN, card)
+    _copy_leaves_timing(1_000_000, card)
     _kernel_timing(1_000_000, card)
     _skewed_timing(card)
     dev = torch.device("cuda")
@@ -3919,7 +4165,9 @@ def main():
                 G3R: seen["4j"][G3R],
                 G4: seen["4d"][G4],
                 GC: x_seen[f"4x headline systematic N={N_MAIN} "
-                           f"T={T_MAIN}"][GC]}
+                           f"T={T_MAIN}"][GC],
+                CL: x_seen[f"4x headline systematic N={N_MAIN} "
+                           f"T={T_MAIN}"][CL]}
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": [{

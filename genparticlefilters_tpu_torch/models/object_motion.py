@@ -122,7 +122,9 @@ def object_motion_filter_impl(gen, y_obs, n_particles: int, t_max: int,
         with _span("om.ess_check"):
             low = host_pred(effective_sample_size(state)
                             < ess_frac * n_particles)
-        state = device_cond(low, lambda s: resample_rejuvenate(s, t), state)
+        # the loop rebinds state: the incoming one is dead after the call
+        state = device_cond(low, lambda s: resample_rejuvenate(s, t), state,
+                            donate=True)
         with _span("om.update"):
             state = pf_update(gen, state, (t + 1, x0),
                               (Extend(1), NoChange()), obs, check=False)

@@ -10,7 +10,10 @@ Both are Python loops over the steps, with the ESS trigger a
 :func:`~.capture.device_cond`: eager, one host read of the device scalar
 per step; under :func:`~.capture.capture`, an IF node inside the CUDA
 graph whose branch runs only where the predicate holds (the loop
-unrolls, as ``lax.scan`` is lowered) and no host read. Given a particle ``mesh`` (parallel/mesh.py),
+unrolls, as ``lax.scan`` is lowered) and no host read. The loop rebinds
+``state`` to the branch's result and keeps no other reference to it, so
+each call donates it (``donate=True``): a taken branch writes its result
+back into the state's own tensors and an untaken one does nothing. Given a particle ``mesh`` (parallel/mesh.py),
 :func:`run_particle_filter` runs each rank's block of the particles: the
 ESS is global, so every rank takes the same branch, and the resample is
 the exact global one. Each phase runs in a ``torch.profiler`` span:
@@ -87,7 +90,8 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
             low = host_pred(effective_sample_size(state)
                             < ess_frac * n_particles)
         state = device_cond(low, lambda s: _resample_rejuvenate(
-            gen, s, resample_method, rejuvenate_fn, t, span_prefix), state)
+            gen, s, resample_method, rejuvenate_fn, t, span_prefix), state,
+            donate=True)
         with span(f"{span_prefix}.update"):
             state = pf_update(gen, state, step_args_fn(t), diffs, obs_fn(t),
                               check=False)
@@ -126,7 +130,8 @@ def tempered_smc(gen, model: GenFn, betas, n_particles: int,
             low = host_pred(effective_sample_size(state)
                             < ess_frac * n_particles)
         state = device_cond(low, lambda s: _resample_rejuvenate(
-            gen, s, resample_method, rejuvenate_fn, beta, span_prefix), state)
+            gen, s, resample_method, rejuvenate_fn, beta, span_prefix), state,
+            donate=True)
         args = args_of(beta)
         with span(f"{span_prefix}.update"):
             state = pf_update(gen, state, args,

@@ -6,17 +6,26 @@
   reads ``pred`` on the host and runs ``branch`` or not. While
   :func:`capture` captures a graph it is what XLA's ``conditional`` is
   under ``jit``: a CUDA-graph IF node (``ops/graph_cond.py``) whose THEN
-  body runs the branch and copies each leaf it replaced into a fresh
-  buffer, and whose ELSE body copies the incoming leaf into the same
-  buffer. At replay only the taken body runs and the predicate stays on
-  the card; no incoming tensor is written.
+  body runs the branch and copies the leaves it replaced, all in one
+  ``copy_leaves`` launch. With ``donate=True`` (XLA giving the dead
+  operand's buffers to the result) each replaced leaf is written back
+  into the incoming tensor, so an untaken check has no work at all and,
+  where every leaf can be donated, the node has no ELSE body. A leaf that
+  cannot be donated (its storage
+  shared with another leaf or with a static input of the capture, or not
+  a whole contiguous storage), and every leaf without ``donate``, goes
+  to a fresh buffer, which the THEN body fills from the result and an
+  ELSE body from the incoming leaf. At replay only the taken body runs
+  and the predicate stays on the card.
   Either way, a branch that returns another structure, leaf shape or
   dtype than it was given raises ``TypeError``, as ``lax.cond`` does.
 - ``_select`` is the IF node's plain version, ``lax.cond`` under
   ``vmap``: the branch always runs and each leaf it replaced becomes
   ``torch.where(pred, out, in)``. :func:`capture`'s eager warm-up runs
   every branch through it, and ``_select_form`` makes a capture take it
-  (the yardstick the IF form is held against on the card).
+  (the yardstick the IF form is held against on the card);
+  ``_buffered_form`` makes a capture ignore ``donate`` (the IF form
+  without donation, timed beside it on the card).
 - :func:`host_pred` is where a filter loop reads its predicate: on the
   host (inside the loop's ``ess_check`` span) unless the captured form
   runs.
@@ -37,6 +46,7 @@ every branch fires. The kernels' ``launches`` counters and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import time
@@ -55,6 +65,8 @@ __all__ = ["device_cond", "host_pred", "capture", "CapturedRun"]
 _WARMING = [0]
 # > 0 inside _select_form(): a capture takes the select form
 _SELECTING = [0]
+# > 0 inside _buffered_form(): a capture ignores donate
+_BUFFERING = [0]
 # the body streams and pools of the captures under way (capture() pushes)
 _BODIES: list = []
 
@@ -118,33 +130,76 @@ def _select(pred, branch, state):
         else o for x, o in zip(in_leaves, out_leaves)])
 
 
-def _if_form(node, branch, state):
-    """``device_cond`` on a conditional ``node``: its THEN body runs
-    ``branch(state)`` and copies each leaf the branch replaced into a
-    buffer from ``node.alloc``; its ELSE body copies the incoming leaf into
-    the same buffer. The result holds the buffers where the branch
-    replaced a leaf, and every other leaf as it came. ``node.then(fn)``
-    and ``node.otherwise(fn)`` capture ``fn``'s work into the two bodies
-    (on the card, :class:`_CardNode`)."""
+def _storage(x) -> int:
+    return x.untyped_storage().data_ptr()
+
+
+def _donatable(leaves, inputs) -> set:
+    """The indices of the tensor leaves of ``leaves`` that a branch's
+    result may be written into: empty, or a whole contiguous storage that
+    no other leaf and none of ``inputs`` (storage addresses) shares."""
+    tensors = [x for x in leaves if isinstance(x, torch.Tensor) and x.numel()]
+    holders = collections.Counter(_storage(x) for x in tensors)
+    return {i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)
+            and (x.numel() == 0 or (
+                x.is_contiguous() and x.storage_offset() == 0
+                and x.untyped_storage().nbytes() == x.numel() * x.itemsize
+                and holders[_storage(x)] == 1
+                and _storage(x) not in inputs))}
+
+
+def _readable(o, written) -> torch.Tensor:
+    """``o`` as a copy source: contiguous, and cloned where its storage is
+    one that the same copy writes (a view of a donated leaf), so that one
+    launch never reads what it writes."""
+    if not o.is_contiguous() or (o.numel() and _storage(o) in written):
+        return o.clone(memory_format=torch.contiguous_format)
+    return o
+
+
+def _if_form(new_node, branch, state, inputs=None):
+    """``device_cond`` on a conditional node ``new_node(bodies)``. Its THEN
+    body runs ``branch(state)`` and copies, in one ``node.copy``, each
+    leaf the branch replaced into its destination: the incoming tensor
+    itself where ``inputs`` (the storage addresses of the capture's static
+    inputs; ``None``: donate nothing) allows it (:func:`_donatable`), else a
+    buffer from ``node.alloc``, which the ELSE body fills from the incoming
+    leaf. The node has an ELSE body only where some tensor leaf of
+    ``state`` cannot be donated. The result holds the destinations where
+    the branch replaced a leaf, and every other leaf as it came.
+    ``node.then(fn)`` and ``node.otherwise(fn)`` capture ``fn``'s work into
+    the two bodies (on the card, :class:`_CardNode`); ``node.donated`` and
+    ``node.buffered`` count the leaves of each kind."""
+    in_leaves, _ = tree_flatten(state)
+    own = set() if inputs is None else _donatable(in_leaves, inputs)
+    one_body = all(i in own for i, x in enumerate(in_leaves)
+                   if isinstance(x, torch.Tensor))
+    node = new_node(1 if one_body else 2)
     done = {}
 
     def then_body():
         out = branch(state)
-        in_leaves, out_leaves, out_def = _flatten_like(state, out)
-        bufs = {i: node.alloc(x) for i, (x, o)
-                in enumerate(zip(in_leaves, out_leaves))
-                if isinstance(o, torch.Tensor) and o is not x}
-        for i, buf in bufs.items():
-            buf.copy_(out_leaves[i])
-        done.update(incoming={i: in_leaves[i] for i in bufs}, bufs=bufs,
-                    out_def=out_def,
-                    leaves=[bufs.get(i, o) for i, o in enumerate(out_leaves)])
+        _, out_leaves, out_def = _flatten_like(state, out)
+        replaced = [i for i, (x, o) in enumerate(zip(in_leaves, out_leaves))
+                    if isinstance(o, torch.Tensor) and o is not x]
+        dsts = {i: in_leaves[i] if i in own else node.alloc(in_leaves[i])
+                for i in replaced}
+        written = {_storage(in_leaves[i]) for i in replaced
+                   if i in own and in_leaves[i].numel()}
+        node.copy(list(dsts.values()),
+                  [_readable(out_leaves[i], written) for i in replaced])
+        bufs = {i: d for i, d in dsts.items() if i not in own}
+        node.donated, node.buffered = len(dsts) - len(bufs), len(bufs)
+        done.update(bufs=bufs, out_def=out_def,
+                    leaves=[dsts.get(i, o) for i, o in enumerate(out_leaves)])
 
     def else_body():
-        for i, buf in done["bufs"].items():
-            buf.copy_(done["incoming"][i])
+        bufs = done["bufs"]
+        node.copy(list(bufs.values()),
+                  [in_leaves[i].contiguous() for i in bufs])
     node.then(then_body)
-    node.otherwise(else_body)
+    if not one_body:
+        node.otherwise(else_body)
     return tree_unflatten(done["out_def"], done["leaves"])
 
 
@@ -153,14 +208,18 @@ class _Bodies:
     captured on and the memory pool their allocations go to. A body's
     capture has its own capture id, so PyTorch's filter, which routes the
     graph's allocations to its pool by capture id, misses it; the pool is
-    kept as long as the graph."""
+    kept as long as the graph. ``inputs`` holds the storage addresses of
+    the capture's static inputs, which no IF node writes; ``nodes`` the IF
+    nodes made."""
 
-    def __init__(self, device):
+    def __init__(self, device, inputs=frozenset()):
         self.device = device
         self.stream = torch.cuda.Stream(device=device)
         with torch.cuda.device(device):
             self.pool = torch.cuda.MemPool()
         self.active = False
+        self.inputs = inputs
+        self.nodes = []
 
     def capture(self, graph, fn):
         """``fn()`` with its work captured into the body ``graph`` on the
@@ -191,38 +250,55 @@ class _Bodies:
 
 
 class _CardNode:
-    """One IF node with an ELSE body, captured on ``pred``'s current
-    stream; the buffers are allocated there, in the graph's pool."""
+    """One IF node with ``bodies`` bodies (1: THEN only, 2: THEN and
+    ELSE), captured on ``pred``'s current stream; the buffers are
+    allocated there, in the graph's pool, and the bodies copy through
+    ``copy_leaves``. ``pred`` is kept: after a replay it holds the value
+    that replay's node read."""
 
-    def __init__(self, pred, bodies: _Bodies):
+    def __init__(self, pred, bodies: _Bodies, n: int):
         from ..ops.graph_cond import if_node
         self.bodies = bodies
+        self.pred = pred
         self.outer = torch.cuda.current_stream(pred.device)
-        self.then_graph, self.else_graph = if_node(pred)
+        self.graphs = if_node(pred, n)
+        self.donated = self.buffered = 0
+        bodies.nodes.append(self)
 
     def alloc(self, x):
         with torch.cuda.stream(self.outer):
             return torch.empty(x.shape, dtype=x.dtype, device=x.device)
 
+    @staticmethod
+    def copy(dsts, srcs):
+        from ..ops.graph_cond import copy_leaves
+        copy_leaves(dsts, srcs)
+
     def then(self, fn):
-        self.bodies.capture(self.then_graph, fn)
+        self.bodies.capture(self.graphs[0], fn)
 
     def otherwise(self, fn):
-        self.bodies.capture(self.else_graph, fn)
+        self.bodies.capture(self.graphs[1], fn)
 
 
-def device_cond(pred, branch: Callable, state):
+def device_cond(pred, branch: Callable, state, donate: bool = False):
     """``branch(state)`` where ``pred`` holds, else ``state``; the
     counterpart of ``lax.cond(pred, branch, lambda s: s, state)``.
 
     ``pred`` is a Python bool or a one-element bool tensor. Eager, it is
     read on the host. While :func:`capture` captures a graph it stays on
-    the card: one CUDA-graph IF node, its THEN body the branch and a copy
-    of every leaf the branch replaced into a fresh buffer, its ELSE body a
-    copy of the incoming leaves into the same buffers; leaves the branch
-    kept pass as the same objects. During :func:`capture`'s warm-up it is
-    ``_select``. Raises ``TypeError`` where the branch changes the
-    structure, a leaf's shape or dtype, or a static leaf, and
+    the card: one CUDA-graph IF node whose THEN body runs the branch and
+    copies every leaf it replaced, in one ``copy_leaves`` launch, into its
+    place in the result; leaves the branch kept pass as the same objects.
+    With ``donate=True`` that place is the incoming tensor itself wherever
+    it can be (XLA's buffer donation): the caller promises that ``state``
+    is dead after the call, since its tensors then hold the result, and an
+    untaken check does nothing. A leaf that cannot be donated, and every
+    leaf without ``donate``, goes to a fresh buffer that an ELSE body
+    fills from the incoming leaf where the branch is not taken. Eager runs
+    and the select form ignore ``donate``. During :func:`capture`'s
+    warm-up it is ``_select``. Raises ``TypeError`` where the branch
+    changes the structure, a leaf's shape or dtype, or a static leaf, and
     ``RuntimeError`` under a capture not made by :func:`capture` (which
     owns the bodies' stream and pool)."""
     if _graph_form(pred):
@@ -233,7 +309,10 @@ def device_cond(pred, branch: Callable, state):
                 "device_cond under a CUDA graph capture that capture() did "
                 "not make: its conditional node needs the body stream and "
                 "pool that capture() sets up")
-        return _if_form(_CardNode(pred, _BODIES[-1]), branch, state)
+        bodies = _BODIES[-1]
+        return _if_form(lambda n: _CardNode(pred, bodies, n), branch, state,
+                        bodies.inputs if donate and not _BUFFERING[0]
+                        else None)
     if not bool(pred):
         return state
     out = branch(state)
@@ -250,6 +329,18 @@ def _select_form():
         yield
     finally:
         _SELECTING[0] -= 1
+
+
+@contextlib.contextmanager
+def _buffered_form():
+    """Inside: a capture ignores ``donate``, so each IF node buffers every
+    leaf its branch replaces (the form the donated one is timed against
+    on the card)."""
+    _BUFFERING[0] += 1
+    try:
+        yield
+    finally:
+        _BUFFERING[0] -= 1
 
 
 @contextlib.contextmanager
@@ -334,7 +425,7 @@ class CapturedRun:
     ``pool_bytes`` the device memory the capture's pools reached beyond
     what was allocated before it, ``nodes`` the IF nodes in the graph (one
     per :func:`device_cond`). ``bodies`` keeps the IF bodies' pool as long
-    as the graph."""
+    as the graph; :attr:`forms` counts what its nodes hold."""
 
     def __init__(self, fn, graph, inputs, out, capture_seconds, pool_bytes,
                  nodes=0, bodies=None):
@@ -346,6 +437,16 @@ class CapturedRun:
         self.pool_bytes = pool_bytes
         self.nodes = nodes
         self.bodies = bodies
+
+    @property
+    def forms(self) -> dict:
+        """``{"else_nodes", "donated", "buffered"}``: the IF nodes with an
+        ELSE body, and the replaced leaves written back into the incoming
+        tensor and into a buffer, over all nodes."""
+        nodes = self.bodies.nodes if self.bodies is not None else []
+        return {"else_nodes": sum(len(n.graphs) == 2 for n in nodes),
+                "donated": sum(n.donated for n in nodes),
+                "buffered": sum(n.buffered for n in nodes)}
 
     def _load(self, args, kw):
         s_args, s_kw = self.inputs
@@ -408,7 +509,9 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
       the generator's state is restored after it;
     - one run is captured into a private pool, with ``gen`` registered,
       each :func:`device_cond` an IF node whose bodies are captured on a
-      stream of their own into a second pool, kept with the graph.
+      stream of their own into a second pool, kept with the graph; the
+      static inputs' storages are registered with it, so that no IF node
+      donates them.
 
     Raises on a generator that is not on the card, on ``mesh=``, and on a
     generative function that is not
@@ -457,7 +560,9 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     from ..ops.graph_cond import if_node
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(gen)
-    bodies = _Bodies(device)
+    bodies = _Bodies(device, frozenset(
+        _storage(x) for x in _plain_leaves((s_args, s_kw))
+        if isinstance(x, torch.Tensor)))
     # the warm-up's garbage freed now, not inside the capture, where it
     # would lower pool_bytes by what it held
     gc.collect()

@@ -49,6 +49,7 @@ JAX package's jitted drivers.
 
 import importlib
 import math
+import types
 
 import numpy as np
 import pytest
@@ -69,6 +70,7 @@ from genparticlefilters_tpu_torch.core.tree import (  # noqa: E402
 from genparticlefilters_tpu_torch.models import (  # noqa: E402
     linear_gaussian as tlg, object_motion as tom, stochastic_volatility as tsv,
     tempered as ttm)
+from genparticlefilters_tpu_torch.ops import graph_cond  # noqa: E402
 from genparticlefilters_tpu_torch.smc.algorithms import (  # noqa: E402
     _resample_rejuvenate, run_particle_filter, tempered_smc)
 
@@ -404,23 +406,50 @@ def test_captured_form_selects_the_sv_and_tempered_branches(case, take):
 # ---------------------------------------------------------------------------
 
 class _StandInNode:
-    """The card's IF node on the CPU: ``then`` runs the THEN body's work
-    as a capture records it (whatever the predicate), ``otherwise`` keeps
-    the ELSE body's for :func:`_if_eager` to run as a replay would."""
+    """The card's IF node on the CPU, captured and replayed once with the
+    predicate ``take``: ``then`` runs the THEN body's work as a capture
+    records it, its copies only where ``take`` holds (and, where it does
+    not, with ``gen``'s state restored after it: an untaken branch draws
+    nothing); ``otherwise`` keeps the ELSE body and, where ``take`` does not
+    hold, runs it after poisoning the buffers, so it must write every
+    buffer itself. ``dsts`` lists each copy's destinations."""
 
-    def __init__(self):
-        self.buffers, self.else_body = [], None
+    def __init__(self, bodies=2, take=True, gen=None):
+        self.graphs = (None,) * bodies
+        self.take, self.gen = take, gen
+        self.buffers, self.dsts, self.else_body = [], [], None
+        self.donated = self.buffered = 0
+        self._copying = True
 
     def alloc(self, x):
         buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         self.buffers.append(buf)
         return buf
 
+    def copy(self, dsts, srcs):
+        self.dsts.append(list(dsts))
+        if self._copying:
+            graph_cond.copy_leaves_plain(dsts, srcs)
+
     def then(self, fn):
-        fn()
+        if self.take:
+            return fn()
+        drawn = self.gen.get_state() if self.gen is not None else None
+        self._copying = False
+        try:
+            fn()
+        finally:
+            self._copying = True
+            if drawn is not None:
+                self.gen.set_state(drawn)
 
     def otherwise(self, fn):
+        assert len(self.graphs) == 2, "an ELSE body on a one-body node"
         self.else_body = fn
+        if not self.take:
+            for buf in self.buffers:
+                _poison(buf)
+            fn()
 
 
 def _poison(buf):
@@ -433,17 +462,17 @@ def _poison(buf):
         buf.bitwise_not_()
 
 
-def _if_eager(take, branch, state):
-    """``_if_form`` on a stand-in node, replayed: the THEN body's result
-    where ``take``, else the buffers poisoned and the ELSE body run
-    alone, so it must write every buffer itself."""
-    node = _StandInNode()
-    out = cap._if_form(node, branch, state)
-    if not take:
-        for buf in node.buffers:
-            _poison(buf)
-        node.else_body()
-    return out, node
+def _if_eager(take, branch, state, inputs=None):
+    """``_if_form`` on a stand-in node, replayed once with predicate
+    ``take``; ``inputs`` as ``_if_form`` takes it (``None``: no donation,
+    a set of storage addresses: donate what they do not hold)."""
+    nodes = []
+
+    def new_node(bodies):
+        nodes.append(_StandInNode(bodies, take))
+        return nodes[-1]
+    out = cap._if_form(new_node, branch, state, inputs)
+    return out, nodes[0]
 
 
 def _om_branch_case(method):
@@ -497,17 +526,266 @@ def test_if_form_raises_on_a_changed_state(kind):
         _if_eager(False, _bad_branches()[kind], state)
 
 
-def _as_if_capturing(monkeypatch):
+def _storages(*trees):
+    return frozenset(x.untyped_storage().data_ptr()
+                     for x in tree_flatten(trees)[0]
+                     if isinstance(x, torch.Tensor))
+
+
+@pytest.mark.parametrize("take", [False, True])
+@pytest.mark.parametrize("case", sorted(_BRANCH_CASES))
+def test_donated_form_matches_the_select_form(case, take):
+    """With donation the IF node's bodies give ``_select``'s result bit for
+    bit on all four branches; every replaced leaf that no other leaf
+    shares is written back into the incoming tensor (the result holds that
+    very object), the others go to buffers; the node has an ELSE body
+    only where some leaf cannot be donated, and each body copies once."""
+    state, branch = _BRANCH_CASES[case]()
+    want = cap._select(torch.tensor(take), branch, state)
+    in_leaves = tree_flatten(state)[0]
+    kept = [o is x for x, o in zip(in_leaves, tree_flatten(branch(state))[0])]
+    own = cap._donatable(in_leaves, frozenset())
+    out, node = _if_eager(take, branch, state, frozenset())
+    _assert_bit_equal(out, want)
+    replaced = [i for i, (x, k) in enumerate(zip(in_leaves, kept))
+                if isinstance(x, torch.Tensor) and not k]
+    donated = [i for i in replaced if i in own]
+    assert donated and (node.donated, node.buffered) == (
+        len(donated), len(replaced) - len(donated))
+    for i, (x, o) in enumerate(zip(in_leaves, tree_flatten(out)[0])):
+        if kept[i] or i in own:
+            assert o is x, f"leaf {i}"
+        else:
+            assert any(o is b for b in node.buffers), f"leaf {i}"
+    tensors = [i for i, x in enumerate(in_leaves)
+               if isinstance(x, torch.Tensor)]
+    one_body = all(i in own for i in tensors)
+    assert len(node.graphs) == (1 if one_body else 2)
+    assert (node.else_body is None) == one_body
+    assert [len(d) for d in node.dsts] == [len(replaced)] + (
+        [] if one_body or take else [node.buffered])
+    # object motion and SV donate every leaf; tempered SMC's state holds
+    # one tensor as two leaves (x and the retval), which are buffered
+    assert one_body == (case != "tempered")
+
+
+@pytest.mark.parametrize("take", [False, True])
+@pytest.mark.parametrize("case", sorted(_BRANCH_CASES))
+def test_donated_replay_writes_only_donated_leaves(case, take):
+    """An untaken replay writes no incoming tensor; a taken one writes the
+    donated leaves and the node's buffers and nothing else: every copy
+    goes to one of those, and every other incoming tensor keeps its
+    values."""
+    state, branch = _BRANCH_CASES[case]()
+    in_leaves = tree_flatten(state)[0]
+    own = cap._donatable(in_leaves, frozenset())
+    snap = _snapshot(state)
+    out, node = _if_eager(take, branch, state, frozenset())
+    mine = {id(in_leaves[i]) for i in own} | {id(b) for b in node.buffers}
+    assert all(id(d) in mine for dsts in node.dsts for d in dsts)
+    for i, x in enumerate(in_leaves):
+        if not isinstance(x, torch.Tensor):
+            continue
+        before = next(b for y, b in snap if y is x)
+        if take and i in own and tree_flatten(out)[0][i] is x and not (
+                torch.equal(x, before)):
+            continue                    # a donated leaf, rewritten
+        assert torch.equal(x, before), f"leaf {i} written"
+
+
+def test_shared_and_registered_leaves_are_buffered():
+    """A leaf whose storage another leaf shares, one whose storage is a
+    registered input, a part of a larger storage and a strided leaf are
+    buffered (the node gets an ELSE body); a leaf of its own is donated;
+    taken and untaken, the result is the select's."""
+    big = torch.arange(10.0)
+    shared = torch.ones(3)
+    given = torch.full((3,), 2.0)
+    own = torch.zeros(3)
+    state = (own, shared, shared, given, big[:3], big[::3][:3])
+
+    def branch(s):
+        return tuple(x * 3 + 1 for x in s)
+    assert cap._donatable(state, _storages(given)) == {0}
+    for take in (False, True):
+        before = [x.clone() for x in state]
+        want = cap._select(torch.tensor(take), branch, state)
+        out, node = _if_eager(take, branch, state, _storages(given))
+        for o, w in zip(out, want):
+            assert torch.equal(o, w)
+        assert len(node.graphs) == 2
+        assert (node.donated, node.buffered) == (1, 5)
+        assert out[0] is own and all(o is not x
+                                     for o, x in zip(out[1:], state[1:]))
+        assert torch.equal(big, torch.arange(10.0))
+        assert torch.equal(given, torch.full((3,), 2.0))
+        assert torch.equal(shared, torch.ones(3))
+        if not take:
+            for x, x0 in zip(state, before):
+                assert torch.equal(x, x0)
+    # no leaf to buffer: one body, and no ELSE
+    out, node = _if_eager(True, branch, (torch.zeros(3), torch.ones(2)),
+                          frozenset())
+    assert len(node.graphs) == 1 and node.else_body is None
+    assert [len(d) for d in node.dsts] == [2]
+
+
+@pytest.mark.parametrize("take", [False, True])
+def test_donated_form_writes_views_expands_and_outside_tensors_right(take):
+    """A branch returning a view of an incoming leaf, an expanded tensor,
+    a tensor from outside it and two incoming leaves swapped: the donated
+    result is the branch's (taken) or the incoming state (untaken), and
+    the outside tensor keeps its values."""
+    state = (torch.arange(6.0).reshape(2, 3), torch.ones(3), torch.zeros(3),
+             torch.zeros(3), torch.arange(3.0), torch.arange(3.0) + 10)
+    outside = torch.full((3,), 7.0)
+
+    def branch(s):
+        return (s[0][:, :], torch.zeros(()).expand(3), outside, s[3] + 1,
+                s[5], s[4])
+    before = [x.clone() for x in state]
+    want = branch(tuple(before))
+    want = tuple(w.clone() for w in want)
+    out, node = _if_eager(take, branch, state, frozenset())
+    assert node.donated == 6 and len(node.graphs) == 1
+    assert torch.equal(outside, torch.full((3,), 7.0))
+    for o, x, w, x0 in zip(out, state, want, before):
+        assert o is x
+        assert torch.equal(o, w if take else x0)
+
+
+def test_copy_leaves_plain_copies_and_the_wrapper_checks():
+    """``copy_leaves_plain`` copies each pair and refuses pairs that do not
+    match; ``copy_leaves`` refuses the same, a strided tensor, and a CPU or
+    meta tensor, before anything is launched (the kernel runs only on the
+    card)."""
+    dsts = [torch.zeros(5), torch.zeros(2, 3, dtype=torch.int32),
+            torch.zeros(0), torch.zeros((), dtype=torch.bool)]
+    srcs = [torch.arange(5.0), torch.arange(6, dtype=torch.int32).reshape(
+        2, 3), torch.zeros(0), torch.ones((), dtype=torch.bool)]
+    graph_cond.copy_leaves_plain(dsts, srcs)
+    for d, s in zip(dsts, srcs):
+        assert torch.equal(d, s)
+    before = graph_cond.copy_leaves.launches
+    for fn in (graph_cond.copy_leaves_plain, graph_cond.copy_leaves):
+        with pytest.raises(ValueError, match="copies"):
+            fn([torch.zeros(3)], [torch.zeros(4)])
+        with pytest.raises(ValueError, match="copies"):
+            fn([torch.zeros(3)], [torch.zeros(3, dtype=torch.float64)])
+        with pytest.raises(ValueError, match="destinations"):
+            fn([torch.zeros(3)], [])
+    with pytest.raises(ValueError, match="contiguous"):
+        graph_cond.copy_leaves([torch.zeros(3)], [torch.zeros(6)[::2]])
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="on one card"):
+            graph_cond.copy_leaves([torch.zeros(3, device=device)],
+                                   [torch.ones(3, device=device)])
+    graph_cond.copy_leaves([], [])
+    assert graph_cond.copy_leaves.launches == before
+
+
+def _donating_drivers():
+    """(driver, kw): each driver that passes ``donate=True``, as its
+    host-``if`` test runs it, and the storages a capture would register
+    (its tensor arguments)."""
+    y_sv = tsv.synthesize_sv_data(_gen(1), T_SV, tsv.SVParams())
+    model, args_fn, obs_fn, rejuv = _sv_parts(y_sv)
+    betas = torch.linspace(0.0, 1.0, 12) ** 2
+    y_om, _ = tom.synthesize_data(_gen(42), T_OM, 3)
+
+    def sv(gen_, ess_frac):
+        return run_particle_filter(gen_, model, T_SV, 256, args_fn, obs_fn,
+                                   ess_frac=ess_frac,
+                                   resample_method="systematic",
+                                   rejuvenate_fn=rejuv)
+
+    def sv_host(gen_, ess_frac):
+        return _host_if_run_particle_filter(gen_, model, T_SV, 256, args_fn,
+                                            obs_fn, ess_frac, "systematic",
+                                            rejuv)
+
+    def tm(gen_, ess_frac):
+        return tempered_smc(gen_, ttm.make_tempered_model(), betas, 256,
+                            rejuvenate_fn=_tm_rejuv, ess_frac=ess_frac)
+
+    def tm_host(gen_, ess_frac):
+        return _host_if_tempered_smc(gen_, ttm.make_tempered_model(), betas,
+                                     256, _tm_rejuv, ess_frac)
+
+    def om(method):
+        return (lambda gen_, ess_frac: tom.object_motion_filter_impl(
+            gen_, y_om, 256, T_OM, ess_frac, method),
+            lambda gen_, ess_frac: _host_if_object_motion_filter(
+                gen_, y_om, 256, T_OM, ess_frac, method), _storages(y_om))
+    return {"sv": (sv, sv_host, _storages(y_sv)),
+            "tempered": (tm, tm_host, _storages(betas)),
+            "om systematic": om("systematic"), "om residual": om("residual")}
+
+
+@pytest.mark.parametrize("ess_frac", ESS_FRACS)
+@pytest.mark.parametrize("driver", ["om residual", "om systematic", "sv",
+                                    "tempered"])
+def test_drivers_donate_like_their_host_if_loops(monkeypatch, driver,
+                                                 ess_frac):
+    """``run_particle_filter``, ``tempered_smc`` and
+    ``object_motion_filter_impl`` with every ESS check an IF node that
+    donates (a stand-in replayed with the check's predicate): bit-equal to
+    their host-``if`` loops, so the state a check is given is dead after
+    it; every node of object motion and SV has one body and donates every
+    leaf its branch replaces."""
+    run, host, inputs = _donating_drivers()[driver]
+    want = host(_gen(3), ess_frac)
+    gen = _gen(3)
+    nodes = _as_if_capturing(monkeypatch, gen, inputs)
+    _assert_bit_equal(run(gen, ess_frac), want)
+    checks = {"sv": T_SV - 1, "tempered": 11}.get(driver, T_OM - 1)
+    assert len(nodes) == checks
+    assert any(n.take for n in nodes) == (ess_frac > 0)
+    if driver != "tempered":
+        assert all(len(n.graphs) == 1 and n.buffered == 0 for n in nodes)
+    assert all(n.donated > 0 for n in nodes)
+
+
+def test_buffered_form_ignores_donate(monkeypatch):
+    """Under ``_buffered_form`` a donating ``device_cond`` buffers every
+    replaced leaf behind an ELSE body, as without ``donate``; the form is
+    restored on exit and on error; ``CapturedRun.forms`` counts both."""
+    cases = [_om_branch_case("systematic") for _ in range(3)]
+    want = cases[0][1](cases[0][0])
+    nodes = _as_if_capturing(monkeypatch)
+    _assert_bit_equal(tg.device_cond(torch.tensor(True), cases[0][1],
+                                     cases[0][0]), want)
+    with cap._buffered_form():
+        _assert_bit_equal(tg.device_cond(torch.tensor(True), cases[1][1],
+                                         cases[1][0], donate=True), want)
+    with pytest.raises(ZeroDivisionError):
+        with cap._buffered_form():
+            1 / 0
+    assert cap._BUFFERING == [0]
+    _assert_bit_equal(tg.device_cond(torch.tensor(True), cases[2][1],
+                                     cases[2][0], donate=True), want)
+    assert [len(n.graphs) for n in nodes] == [2, 2, 1]
+    assert [n.donated for n in nodes] == [0, 0, 8]
+    assert nodes[0].buffered == nodes[1].buffered == 8
+    run = cap.CapturedRun(len, _NoGraph(), ((), {}), (), 0.0, 0, 3,
+                          types.SimpleNamespace(nodes=nodes))
+    assert run.forms == {"else_nodes": 2, "donated": 8, "buffered": 16}
+
+
+def _as_if_capturing(monkeypatch, gen=None, inputs=frozenset()):
     """``device_cond`` as under ``capture``: the captured form taken for
-    a CPU predicate, and each IF node a stand-in (``nodes`` lists them)."""
+    a CPU predicate, each IF node a stand-in replayed with that predicate
+    (``nodes`` lists them; ``gen`` the generator an untaken branch must
+    leave as it was), ``inputs`` the capture's registered storages."""
     nodes = []
 
-    def card_node(pred, bodies):
-        nodes.append(_StandInNode())
+    def card_node(pred, bodies, n):
+        nodes.append(_StandInNode(n, bool(pred), gen))
         return nodes[-1]
     monkeypatch.setattr(cap, "_graph_form", lambda pred: True)
     monkeypatch.setattr(cap, "_CardNode", card_node)
-    monkeypatch.setattr(cap, "_BODIES", [object()])
+    monkeypatch.setattr(cap, "_BODIES", [types.SimpleNamespace(
+        inputs=frozenset(inputs))])
     return nodes
 
 
@@ -557,12 +835,14 @@ def test_graph_cond_raises_on_a_cpu_tensor():
     """The shim reads its predicate on the card: a CPU or meta tensor, or a
     Python bool, raises before anything is built, and no node is
     counted."""
-    from genparticlefilters_tpu_torch.ops import graph_cond
     before = graph_cond.if_node.launches
     for pred in (torch.tensor(True), torch.ones((), dtype=torch.bool,
                                                 device="meta"), True):
         with pytest.raises(ValueError, match="on the card"):
             graph_cond.if_node(pred)
+    for bodies in (0, 3):
+        with pytest.raises(ValueError, match="1 or 2 bodies"):
+            graph_cond.if_node(torch.tensor(True), bodies)
     assert graph_cond.if_node.launches == before
     assert graph_cond.CAPTURE_MODE == 0    # cudaStreamCaptureModeGlobal
 
