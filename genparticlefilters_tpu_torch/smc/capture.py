@@ -28,7 +28,8 @@
   without donation, timed beside it on the card).
 - :func:`host_pred` is where a filter loop reads its predicate: on the
   host (inside the loop's ``ess_check`` span) unless the captured form
-  runs.
+  runs. ``host_pred.reads`` counts the host reads: one synchronize per
+  ESS check eager, none in a replay.
 - :func:`capture` is ``jax.jit`` for one static configuration: it builds
   every kernel, runs ``fn`` once eagerly in its captured form (every
   kernel, library and lazy initialisation meets the card before the
@@ -41,7 +42,13 @@ is fixed there, taken or not, so a replay's draws after an untaken branch
 are those after a taken one. An IF replay is bit-equal to the select
 replay from the same seed at any predicate, and to the eager run where
 every branch fires. The kernels' ``launches`` counters and
-``Unfold.steps_run`` count at capture, not per replay.
+``Unfold.steps_run`` count at capture, not per replay. Per-replay counts
+and phase times come from the device spans (``utils/spans.py``): a graph
+captured while ``torch.profiler`` runs holds a marker at each span's entry
+and exit, one :data:`~..utils.spans.RUN` span around the whole run, so
+each replay logs on the card its phases' device ns and, through the
+``*.resample`` spans inside the IF bodies, the ESS checks that fired.
+Captured without the profiler, the graph holds no marker.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ import torch
 from ..core.batching import BOUNDARY
 from ..core.gfi import GenFn
 from ..core.tree import tree_flatten, tree_unflatten
+from ..utils.spans import RUN, arm_device_spans, span
 
 __all__ = ["device_cond", "host_pred", "capture", "CapturedRun"]
 
@@ -79,9 +87,18 @@ def _graph_form(pred) -> bool:
 
 
 def host_pred(pred):
-    """``pred`` as a Python bool (one host read), or the device tensor
-    itself where :func:`device_cond` takes its captured form."""
-    return pred if _graph_form(pred) else bool(pred)
+    """``pred`` as a Python bool (one host read, counted in
+    ``host_pred.reads``), or the device tensor itself where
+    :func:`device_cond` takes its captured form."""
+    if _graph_form(pred):
+        return pred
+    host_pred.reads += 1
+    return bool(pred)
+
+
+#: host reads of a predicate by :func:`host_pred` (on the card, each
+#: waits for the queue)
+host_pred.reads = 0
 
 
 def _same_static(a, b) -> bool:
@@ -511,7 +528,10 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
       each :func:`device_cond` an IF node whose bodies are captured on a
       stream of their own into a second pool, kept with the graph; the
       static inputs' storages are registered with it, so that no IF node
-      donates them.
+      donates them. The run is one ``captured.run`` span; where
+      ``torch.profiler`` runs, its spans become device markers in the
+      graph (``utils/spans.py``), whose library is loaded before the
+      capture is timed.
 
     Raises on a generator that is not on the card, on ``mesh=``, and on a
     generative function that is not
@@ -570,11 +590,12 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     before = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     nodes = if_node.launches
+    arm_device_spans()
     t0 = time.perf_counter()
     _BODIES.append(bodies)
     try:
         with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="global"):
+                              capture_error_mode="global"), span(RUN):
             out = fn(gen, *s_args, **s_kw)
     finally:
         _BODIES.remove(bodies)
