@@ -14,7 +14,8 @@ non-zero and no result line is printed):
 2. build: compile the kernels for sm_90a, one nvcc per source, side by
    side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu), G3
    (csrc/gather_parents.cu, column and row mode), G4
-   (csrc/merge_count.cu) and the conditional-node shim
+   (csrc/merge_count.cu), G5 (csrc/max_scan.cu) and the conditional-node
+   shim
    (csrc/graph_cond.cu, which refuses a toolkit older than 12.8), whose
    runtime and driver versions are printed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -22,7 +23,8 @@ non-zero and no result line is printed):
    also at a 1026-row pack; G4 also at skewed inputs: degenerate weights,
    all-equal u, n or m = 1, m = 4n and n = 4m, m = 0; G3's row mode at
    widths 1-16, a view off a 16-byte boundary, M = N/4 and 4N, extreme
-   bit patterns); graph_cond: a donating toy device_cond on a state of
+   bit patterns; G5 on int32 and float32 rows around its tiles, with
+   one-ulp dips, NaN and signed zeros, against torch.cummax); graph_cond: a donating toy device_cond on a state of
    three 1M-element leaves (the branch draws) in three forms (the state
    made in the run: one body, both replaced leaves donated; the static
    inputs themselves: both buffered behind an ELSE body; a kept static
@@ -294,6 +296,11 @@ KERNELS = {
                                   TPU + "gather.py:30, "
                                   + TPU + "sorted_gather.py:38"),
     "merge_count (G4)": (CSRC + "merge_count.cu", TPU + "merge_count.py:41"),
+    # not a Pallas kernel: the JAX package's running maximum is a blocked
+    # cummax that XLA lowers
+    "max_scan (G5)": (CSRC + "max_scan.cu",
+                      "genparticlefilters_tpu/smc/resample.py:70 (_cummax1; "
+                      "not a TPU kernel)"),
     # not a TPU kernel: the IF node is XLA's conditional, lax.cond's
     # lowering under jit, and its plain version is capture's _select
     "graph_cond (IF)": (CSRC + "graph_cond.cu",
@@ -307,7 +314,7 @@ KERNELS = {
                          " (lax.cond's result written into its operand's "
                          "buffers; not a TPU kernel)"),
 }
-G1, G2, G3, G3R, G4, GC, CL = KERNELS
+G1, G2, G3, G3R, G4, G5, GC, CL = KERNELS
 N_TOY = 1 << 20                 # phase 3's device_cond state: 1M per leaf
 # every captured run, kept until 4x ends: once a graph is destroyed, the
 # profiler names the kernels in a later graph's IF bodies after the
@@ -338,10 +345,11 @@ def _wrappers():
                                                          gather_rows)
     from genparticlefilters_tpu_torch.ops.graph_cond import (copy_leaves,
                                                              if_node)
+    from genparticlefilters_tpu_torch.ops.max_scan import max_scan
     from genparticlefilters_tpu_torch.ops.merge_count import merge_count
     return dict(zip(KERNELS, (resample_gather_split, resample_gather_split_u,
                               gather_cols, gather_rows, merge_count,
-                              if_node, copy_leaves)))
+                              max_scan, if_node, copy_leaves)))
 
 
 def _capture_module():
@@ -607,6 +615,52 @@ def _check_G4(dev, gen):
               f"bit-equal to the cummax of plain (what _pinned_F makes of "
               f"either)")
     return max_err
+
+
+def _g5_input(kind, dtype, shape, gen, dev):
+    """``shape`` of ``dtype`` on the card: a card cumsum (float32 dips of
+    an ulp where its blocks join), NaN planted at each row's start, middle
+    and end, or signed zeros."""
+    n = math.prod(shape)
+    if kind == "cumsum":
+        x = torch.cumsum(torch.rand(n, generator=gen, device=dev), 0)
+        if dtype == torch.int32:
+            x = (x * 4).to(torch.int32) - (torch.rand(
+                n, generator=gen, device=dev) < 0.05).to(torch.int32)
+    elif kind == "nan":
+        x = torch.randn(n, generator=gen, device=dev)
+        rows = x.view(-1, shape[-1])
+        for at in (0, shape[-1] // 2, shape[-1] - 1):
+            rows[:, at] = math.nan
+    else:
+        x = torch.tensor([0.0, -0.0, -1.0], device=dev)[torch.randint(
+            0, 3, (n,), generator=gen, device=dev)]
+    return x.to(dtype).reshape(shape)
+
+
+def _check_G5(dev, gen):
+    from genparticlefilters_tpu_torch.ops.max_scan import (max_scan,
+                                                           max_scan_plain)
+    shapes = [(n,) for n in (1, 33, 512, 513, 4095, 4096, 4097, N_MAIN,
+                             N_MAIN + 1, 1_000_000)] + [(4, 250_000),
+                                                        (1000, 100)]
+    for dtype in (torch.int32, torch.float32):
+        kinds = ("cumsum", "nan", "zeros") if dtype == torch.float32 \
+            else ("cumsum",)
+        for kind in kinds:
+            for shape in shapes:
+                x = _g5_input(kind, dtype, shape, gen, dev)
+                got, ref = max_scan(x), max_scan_plain(x)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    got, ref = got.view(torch.int32), ref.view(torch.int32)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"G5 differs at {dtype} {shape} "
+                                         f"{kind}")
+            print(f"[3 G5] {dtype} {kind} at {len(shapes)} shapes "
+                  f"(lengths 1 to 1M, [4, 250000], [1000, 100]): bit-equal "
+                  f"to torch.cummax")
+    return 0
 
 
 def _extreme_pieces(n, dev):
@@ -875,7 +929,7 @@ def phase_kernel_vs_plain():
     torch.manual_seed(0)
     return dict(zip(KERNELS, (_check_G1(dev, gen), _check_G2(dev, gen),
                               *_check_G3(dev, gen), _check_G4(dev, gen),
-                              _check_graph_cond(),
+                              _check_G5(dev, gen), _check_graph_cond(),
                               _check_copy_leaves(dev, gen))))
 
 
@@ -1002,7 +1056,7 @@ def phase_paths(y_obs, main_state):
     gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa
     st, seen["4a"] = _path(
         "4a residual N=100K",
-        lambda: _filter("residual")(gen(100), y_obs, N_MAIN), (G1, G2))
+        lambda: _filter("residual")(gen(100), y_obs, N_MAIN), (G1, G2, G5))
     _posterior_check(_filter("residual"), y_obs, N_MAIN, "4a")
     _, seen["4b"] = _path(
         "4b residual N=100",
@@ -3551,15 +3605,18 @@ def _clustered_parents(n, dev, gen):
 
 def _kernel_timing(n, card):
     """``{kernel: {ms, plain_ms, library_ms, bound_ms}}`` for G1, G2, G3
-    (column and row mode) and G4 at n particles."""
+    (column and row mode), G4 and G5 at n particles."""
     from genparticlefilters_tpu_torch.ops.fused_gather import (
         resample_gather_split, resample_gather_split_plain,
         resample_gather_split_u, resample_gather_split_u_plain)
     from genparticlefilters_tpu_torch.ops.gather import (
         gather_cols, gather_cols_plain, gather_rows, gather_rows_plain)
+    from genparticlefilters_tpu_torch.ops.max_scan import (max_scan,
+                                                           max_scan_plain)
     from genparticlefilters_tpu_torch.ops.merge_count import (
         merge_count, merge_count_plain)
     from genparticlefilters_tpu_torch.smc.resample import systematic_F
+    from smcbench.harness.devicetime import flushed_seconds
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     pieces = _pieces(WIDTHS, n, dev, gen)
@@ -3575,6 +3632,20 @@ def _kernel_timing(n, card):
     perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
     idx = perm.long()
     clustered8 = _clustered_parents(n, dev, gen)
+    scans = {dt: _g5_input("cumsum", dt, (n,), gen, dev)
+             for dt in (torch.float32, torch.int32)}
+    g5 = {}
+    for dt, x in scans.items():
+        g5[dt] = _compare_timing(
+            f"G5] N={n} {dt}", lambda: max_scan(x),
+            lambda: max_scan_plain(x), card, 8 * n,
+            lambda: torch.cummax(x, 0).values)
+        alone = {k: 1e3 * flushed_seconds(f, dev) for k, f in (
+            ("kernel", lambda: max_scan(x)),
+            ("torch.cummax", lambda: torch.cummax(x, 0).values))}
+        print(f"[5 G5] N={n} {dt}: one call alone, L2 flushed (median of "
+              f"30): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                   alone.items()) + f"; card {card}")
     _compare_timing(
         f"G3 row mode] N={n} [N, 8] clustered",
         lambda: gather_rows(rows8, clustered8),
@@ -3606,7 +3677,8 @@ def _kernel_timing(n, card):
         G4: _compare_timing(
             f"G4] n=m={n}", lambda: merge_count(c, u),
             lambda: merge_count_plain(c, u), card, 12 * n,
-            lambda: torch.searchsorted(u, c, right=True, out_int32=True))}
+            lambda: torch.searchsorted(u, c, right=True, out_int32=True)),
+        G5: g5[torch.float32]}
 
 
 def _graph_cond_timing(card):
@@ -4164,6 +4236,7 @@ def main():
                 G3: seen["4f"][G3],
                 G3R: seen["4j"][G3R],
                 G4: seen["4d"][G4],
+                G5: seen["4a"][G5],
                 GC: x_seen[f"4x headline systematic N={N_MAIN} "
                            f"T={T_MAIN}"][GC],
                 CL: x_seen[f"4x headline systematic N={N_MAIN} "

@@ -97,14 +97,16 @@ def load_libraries(binds: dict) -> dict:
 def load_all() -> dict:
     """Build side by side and load every kernel of the package: G1
     (``stairs_gather``), G2 (``stairs_gather_u``), G3 (``gather_parents``),
-    G4 (``merge_count``) and the conditional-node shim (``graph_cond``).
-    Returns ``{name: library}``."""
+    G4 (``merge_count``), G5 (``max_scan``) and the conditional-node shim
+    (``graph_cond``). Returns ``{name: library}``."""
     from .fused_gather import _LIB, _LIB_U, _bind, _bind_u
     from .gather import _LIB as _LIB_G3, _bind as _bind_g3
     from .graph_cond import _LIB as _LIB_IF, _bind as _bind_if
+    from .max_scan import _LIB as _LIB_G5, _bind as _bind_g5
     from .merge_count import _LIB as _LIB_G4, _bind as _bind_g4
     return load_libraries({_LIB: _bind, _LIB_U: _bind_u, _LIB_G3: _bind_g3,
-                           _LIB_G4: _bind_g4, _LIB_IF: _bind_if})
+                           _LIB_G4: _bind_g4, _LIB_G5: _bind_g5,
+                           _LIB_IF: _bind_if})
 
 
 def build_info(name: str) -> dict:

@@ -5,11 +5,12 @@ passes them through a keyword: ``e``, the ``[n_out + 1]`` exponentials of
 multinomial and residual (their sorted uniforms are cumulative exponential
 spacings, no sort); ``v``, the ``[n_out]`` uniforms of stratified; ``u0``,
 the systematic uniform. The arithmetic after the draws follows the JAX
-package operation for operation, every guard kept: the ``cummax`` on the
-cumsums that feed brackets, ``u >= 1e-37``, ``rc >= 1e-30`` and the
-1.5/1.75 padding of residual's unused uniforms. One step departs from it:
-the cumulative weights are summed in float64 (:func:`_cumw`), and the
-brackets handed to the kernels are rounded to float32 after the sum.
+package operation for operation, every guard kept: the ``cummax`` (the
+kernel G5, ``max_scan``) on the cumsums that feed brackets,
+``u >= 1e-37``, ``rc >= 1e-30`` and the 1.5/1.75 padding of residual's
+unused uniforms. One step departs from it: the cumulative weights are
+summed in float64 (:func:`_cumw`), and the brackets handed to the kernels
+are rounded to float32 after the sum.
 
 A full state is resampled by one fused gather of every packable trace
 leaf:
@@ -38,6 +39,7 @@ from ..core.batching import flatten_with_axes
 from ..core.tree import tree_unflatten
 from ..ops.fused_gather import resample_gather_split, resample_gather_split_u
 from ..ops.gather import gather_cols, gather_rows
+from ..ops.max_scan import max_scan
 from ..ops.merge_count import merge_count
 from ..utils.weights import (safe_softmax, apply_check, logsumexp,
                              log_float32)
@@ -55,7 +57,7 @@ __all__ = ["pf_resample", "pf_multinomial_resample", "pf_residual_resample",
 def counts_to_parents(counts, n_out: int):
     """Per-particle offspring counts (Σ = n_out) -> the parent index vector
     [n_out] in particle order: scatter each particle's index at its first
-    output slot, then forward-fill with a cummax."""
+    output slot, then forward-fill with a cummax (G5)."""
     counts = counts.to(torch.int32)
     starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     n = counts.shape[0]
@@ -65,23 +67,19 @@ def counts_to_parents(counts, n_out: int):
     seeded = torch.full((n_out + 1,), -1, dtype=torch.int32,
                         device=counts.device)
     seeded.scatter_reduce_(0, slots, idx, reduce="amax")
-    return torch.cummax(seeded[:n_out], 0).values
+    return max_scan(seeded[:n_out])
 
 
 def _pinned_F(cdf_hits, n_out: int):
     """Monotone cumulative hit counts with total pinned to n_out. ``F_i`` =
     number of output slots with parent <= i; output j's parent is
-    ``#{i : F_i <= j}``. The cummax keeps F monotone where a float32
+    ``#{i : F_i <= j}``. The cummax (G5) keeps F monotone where a float32
     cumsum is not (parallel scans reassociate). The pin is a fill kernel:
     assigning a Python int would copy it from the host and sync. A
     ``[K, b]`` input is pinned row by row (blockwise resampling)."""
     F = torch.clamp(cdf_hits, 0, n_out)
     F[..., -1:].fill_(n_out)
-    return _cummax(F)
-
-
-def _cummax(x):
-    return torch.cummax(x, -1).values
+    return max_scan(F)
 
 
 def _cumw(w):
@@ -98,10 +96,10 @@ def _cumw(w):
 def _brackets(w, lift: bool = True):
     """Normalized float32 brackets ``c`` from weights (any leading axes):
     the float64 cumsum, normalized, rounded to float32 and, with ``lift``,
-    kept monotone by a ``cummax``. The merge count (G4) lifts dips inside
-    its kernel, so its routes pass ``lift=False`` and skip that scan."""
+    kept monotone by a ``cummax`` (G5). The merge count (G4) lifts dips
+    inside its kernel, so its routes pass ``lift=False`` and skip that scan."""
     c = _normalized(_cumw(w)).to(torch.float32)
-    return _cummax(c) if lift else c
+    return max_scan(c) if lift else c
 
 
 def _normalized(c):
@@ -136,7 +134,7 @@ def _sorted_uniforms_cum(gen, n: int, device, e=None):
         (n + 1,), dtype=torch.float32, device=device).exponential_(
             generator=gen))
     if e.device.type == "cpu":
-        return _cummax(torch.cumsum(e, 0))
+        return max_scan(torch.cumsum(e, 0))
     # on the card torch.cumsum of floats reassociates differently from run
     # to run (PyTorch lists it as nondeterministic), which moved sorted
     # uniforms across brackets between runs of one seed; summed exactly
@@ -514,7 +512,7 @@ def blockwise_compose(gen, weights_blocks, method: str, u0=None, e=None,
         ex = _draws(e, (K, b + 1), dev, lambda: torch.empty(
             (K, b + 1), dtype=torch.float32, device=dev).exponential_(
                 generator=gen))[rows]
-        return _cummax(torch.cumsum(ex, 1))
+        return max_scan(torch.cumsum(ex, 1))
 
     if method == "systematic":
         u = _draws(u0, (K,), dev, lambda: torch.rand(

@@ -31,6 +31,7 @@ from ..core.batching import tree_concat
 from ..core.choicemap import ChoiceMap
 from ..core.gfi import GenFn, _mask_to
 from ..core.tree import tree_leaves
+from ..ops.max_scan import max_scan
 from ..utils.weights import safe_softmax, apply_check, logsumexp, log_float32
 from .initialize import pf_initialize
 from .resample import (counts_to_parents, multinomial_cu, residual_F_fused,
@@ -178,7 +179,7 @@ def pf_optimal_resize(gen, state, n_particles: int, check="warn", u=None):
     F = torch.floor(n_res.to(torch.float64) * cum - u).to(torch.int32) + 1
     F = torch.minimum(torch.clamp_min(F, 0), n_res)
     F[-1:].copy_(n_res.reshape(1))
-    F = torch.cummax(F, 0).values
+    F = max_scan(F)
     counts = F - torch.cat([torch.zeros((1,), dtype=F.dtype, device=dev),
                             F[:-1]])
     res_parents = counts_to_parents(counts, m)  # first n_res entries valid

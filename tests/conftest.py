@@ -15,3 +15,9 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_threefry_partitionable", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA card; skips where there is none "
+        "(a test's ``card`` fixture decides)")

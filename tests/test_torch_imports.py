@@ -36,7 +36,8 @@ def test_every_module_imports():
                  "smc.translate", "utils.stratification",
                  "models.stochastic_volatility", "models.tempered",
                  "utils.device", "utils.checkpoint", "utils.profiling",
-                 "config", "smc.capture", "ops.graph_cond"):
+                 "config", "smc.capture", "ops.graph_cond",
+                 "ops.max_scan"):
         assert f"genparticlefilters_tpu_torch.{name}" in names
     for name in names:
         importlib.import_module(name)
