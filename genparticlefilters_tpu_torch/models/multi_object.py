@@ -9,6 +9,19 @@ few elementwise kernels over ``[N, K, 2]``. The packed step storage holds
 returns, which is too wide for the scalar carry cache), so the trace packs
 ``16·T + 1`` rows: 161 at T=10 and 1025 at T=64.
 
+The config-5 filter (``mot_particle_filter``) is ``run_particle_filter``
+under span prefix ``mot``: systematic resampling when the ESS falls below
+``ess_frac`` times the current count, one-step ``Extend`` updates, and,
+given a ``resize_schedule``, online resizing. Config 5's schedule
+(:func:`mot_resize_schedule`, after ``scripts/config45_bench.py``) resizes
+residually to N/2 before step T//3 and multinomially back to N before step
+2T//3: at T=10 and N=1M, 1M -> 500K before step 3 and 500K -> 1M before
+step 6. Its phases are the ``mot.initialize``, ``mot.resize``,
+``mot.ess_check``, ``mot.resample`` and ``mot.update`` spans.
+``mot_particle_filter_captured`` captures the whole filter as one CUDA
+graph (9 IF nodes at T=10, the two resizes between them) and replays it
+with new observations.
+
 The data-association variant adds a ``[K]`` int32 ``assoc`` site per step:
 observation slot j is produced by object ``assoc[j]``.
 """
@@ -22,10 +35,12 @@ import torch
 from ..core import gen, trace, normal, uniform_discrete, Unfold, ChoiceMap, \
     Entry, batched_interpretation
 from ..smc.algorithms import run_particle_filter
+from ..smc.capture import capture
 from ..utils.device import entry_device
 
 __all__ = ["MOTParams", "make_mot_model", "mot_obs_at_t", "mot_obs_dense",
-           "synthesize_mot_data", "mot_particle_filter",
+           "synthesize_mot_data", "mot_resize_schedule",
+           "mot_particle_filter", "mot_particle_filter_captured",
            "make_mot_da_model", "synthesize_mot_da_data",
            "mot_da_particle_filter"]
 
@@ -87,18 +102,44 @@ def synthesize_mot_data(gen_, t_max: int, p: MOTParams):
     return _simulate_one(gen_, make_mot_model(t_max, p), t_max, p)[("y",)]
 
 
+def mot_resize_schedule(n_particles: int, t_max: int) -> dict:
+    """Config 5's online resizing: a residual resize to N/2 before step
+    T//3 and a multinomial resize back to N before step 2T//3."""
+    return {t_max // 3: (n_particles // 2, "residual"),
+            2 * t_max // 3: (n_particles, "multinomial")}
+
+
 def mot_particle_filter(gen_, y_obs, n_particles: int, t_max: int,
                         p: MOTParams, ess_frac: float = 0.5,
-                        resample_method: str = "systematic"):
-    """The config-5 filter: ESS-triggered resampling and one-step
-    extensions over the dense observations, every draw from ``gen_``."""
+                        resample_method: str = "systematic",
+                        resize_schedule=None):
+    """The config-5 filter: ESS-triggered resampling (below ``ess_frac``
+    times the current count) and one-step extensions over the dense
+    observations, every draw from ``gen_``, in ``mot.*`` spans. With
+    ``resize_schedule`` (``{t: (n_new, method)}``, e.g.
+    :func:`mot_resize_schedule`) the particle set is resized before step
+    t's check; without it the count stays ``n_particles``."""
     model = make_mot_model(t_max, p)
     x0 = _x0(p, gen_.device)
     obs = mot_obs_dense(torch.as_tensor(y_obs, device=gen_.device))
     return run_particle_filter(
         gen_, model, t_max, n_particles,
         step_args_fn=lambda t: (t + 1, x0), obs_fn=lambda t: obs,
-        ess_frac=ess_frac, resample_method=resample_method)
+        ess_frac=ess_frac, resample_method=resample_method,
+        span_prefix="mot", resize_schedule=resize_schedule)
+
+
+def mot_particle_filter_captured(gen_, y_obs, n_particles: int, t_max: int,
+                                 p: MOTParams, ess_frac: float = 0.5,
+                                 resample_method: str = "systematic",
+                                 resize_schedule=None):
+    """:func:`mot_particle_filter` captured once as a CUDA graph on
+    ``gen_``'s card. Returns a :class:`~..smc.capture.CapturedRun`:
+    ``run(y)`` replays it with new observations ``y [T, K, 2]``, drawing
+    from ``gen_`` at its current state, and returns a fresh state."""
+    return capture(mot_particle_filter, gen_, y_obs, n_particles, t_max, p,
+                   ess_frac=ess_frac, resample_method=resample_method,
+                   resize_schedule=resize_schedule)
 
 
 # ---------------------------------------------------------------------------

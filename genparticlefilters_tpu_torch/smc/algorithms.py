@@ -1,7 +1,8 @@
 """Canned SMC drivers: the README loop as reusable functions.
 
 - :func:`run_particle_filter`: a state-space particle filter with
-  ESS-triggered resampling (and optional rejuvenation);
+  ESS-triggered resampling (and optional rejuvenation), optionally
+  resizing the particle set online on a schedule;
 - :func:`tempered_smc`: SMC over a model *sequence* (annealing), each
   move an ``update`` to new model arguments, with ESS-triggered
   resampling and optional rejuvenation.
@@ -17,9 +18,9 @@ back into the state's own tensors and an untaken one does nothing. Given a parti
 :func:`run_particle_filter` runs each rank's block of the particles: the
 ESS is global, so every rank takes the same branch, and the resample is
 the exact global one. Each phase runs in a ``torch.profiler`` span:
-``{span_prefix}.initialize``, ``.ess_check``, ``.resample``,
+``{span_prefix}.initialize``, ``.resize``, ``.ess_check``, ``.resample``,
 ``.rejuvenate`` and ``.update``; each model's wrapper passes its own
-prefix (``sv``, ``tm``).
+prefix (``sv``, ``tm``, ``mot``).
 """
 
 from __future__ import annotations
@@ -31,10 +32,12 @@ import torch
 from ..core.choicemap import EMPTY
 from ..core.gfi import GenFn, NoChange, Extend, UnknownChange
 from ..utils.spans import span
-from .state import ParticleFilterState, effective_sample_size, log_ml_estimate
+from .state import (ParticleFilterState, effective_sample_size,
+                    log_ml_estimate, num_particles)
 from .initialize import pf_initialize
 from .update import pf_update
 from .resample import pf_resample
+from .resize import pf_resize
 from .capture import device_cond, host_pred
 
 __all__ = ["run_particle_filter", "tempered_smc"]
@@ -50,6 +53,26 @@ def _resample_rejuvenate(gen, state, resample_method, rejuvenate_fn, at,
     return state
 
 
+def _check_schedule(schedule, t_max: int, mesh) -> dict:
+    """``schedule`` as ``{t: (n_new, method)}``, after checking that each
+    step lies in 1..t_max-1 and each count is positive; ``{}`` for
+    none."""
+    if not schedule:
+        return {}
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_particle_filter(resize_schedule=..., mesh=...): online "
+            "resizing of a sharded state is not built (pf_resize resizes "
+            "one block)")
+    out = {}
+    for t, (n_new, method) in schedule.items():
+        if not 1 <= int(t) < t_max or int(n_new) < 1:
+            raise ValueError(f"resize_schedule: step {t} must lie in 1.."
+                             f"{t_max - 1} and the count {n_new} be positive")
+        out[int(t)] = (int(n_new), method)
+    return out
+
+
 def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
                         step_args_fn: Callable,
                         obs_fn: Callable,
@@ -58,7 +81,8 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
                         rejuvenate_fn: Callable | None = None,
                         argdiffs=None,
                         span_prefix: str = "smc",
-                        mesh=None) -> ParticleFilterState:
+                        mesh=None,
+                        resize_schedule=None) -> ParticleFilterState:
     """Generic SSM particle filter, every random number drawn from
     ``gen``.
 
@@ -70,6 +94,13 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
     - ``mesh``: each rank initializes and carries ``n_particles /
       mesh.size`` of the particles, drawing from its own ``gen`` (seed it
       per rank); the global resample takes the first rank's draws.
+    - ``resize_schedule``: ``{t: (n_new, method)}``, online resizing:
+      before step t's ESS check the state is resized to ``n_new``
+      particles by ``pf_resize(gen, state, n_new, method, check=False)``
+      (``multinomial``, ``residual`` or ``optimal``), in a
+      ``{span_prefix}.resize`` span. The resize draws from ``gen`` before
+      the check does. Every ESS check compares with ``ess_frac`` times
+      the count the state then holds (on a mesh, the global count).
 
     The JAX package's unused ``init_args`` parameter is left out.
     """
@@ -77,6 +108,7 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
     if mesh is not None and n_local * mesh.size != n_particles:
         raise ValueError(f"n_particles={n_particles} not divisible by the "
                          f"mesh's {mesh.size} ranks")
+    schedule = _check_schedule(resize_schedule, t_max, mesh)
     with span(f"{span_prefix}.initialize"):
         state = pf_initialize(gen, model, step_args_fn(0), obs_fn(0),
                               n_local)
@@ -86,9 +118,13 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
     diffs = argdiffs if argdiffs is not None else (
         (Extend(1),) + tuple(NoChange() for _ in range(n_args - 1)))
     for t in range(1, t_max):
+        if t in schedule:
+            n_new, method = schedule[t]
+            with span(f"{span_prefix}.resize"):
+                state = pf_resize(gen, state, n_new, method, check=False)
         with span(f"{span_prefix}.ess_check"):
             low = host_pred(effective_sample_size(state)
-                            < ess_frac * n_particles)
+                            < ess_frac * num_particles(state))
         state = device_cond(low, lambda s: _resample_rejuvenate(
             gen, s, resample_method, rejuvenate_fn, t, span_prefix), state,
             donate=True)
