@@ -50,7 +50,8 @@ from .gfi import (GenFn, Trace, Extend, NoChange, current_batch, _where_lead,
                   _to_batch, _batch_tree, _assess_device, ABSTRACT)
 from .packed import (StepStorage, StaticColumn, make_storage, unpack_tree,
                      read_step, write_steps, zeros_column, pack_column,
-                     fits_layout, holds_store, put_extra, put_rows)
+                     fits_layout, holds_store, put_extra, put_rows, owned,
+                     storage_of, zeros_storage)
 from .tree import (tree_leaves, tree_map, tree_flatten, tree_unflatten,
                    flatten_up_to)
 
@@ -189,13 +190,15 @@ def _select_store(accept, new_st: StepStorage, old_st: StepStorage):
 
 
 def _zeros_stacked(col, T, device):
-    """Structural zeros of a column tree stacked over ``T`` steps: tensors
-    ``[T, ...]``, Python numbers a :class:`StaticColumn` of zeros."""
+    """Structural zeros of a column tree stacked over ``T`` steps, for the
+    shapes its spec reads: tensors ``[T, ...]`` expanded from one step's
+    zeros, Python numbers a :class:`StaticColumn` of zeros."""
     return tree_map(
         lambda l: (StaticColumn([type(l)(0)] * T)
                    if isinstance(l, (bool, int, float))
-                   else torch.zeros((T,) + tuple(l.shape), dtype=l.dtype,
-                                    device=device)), col)
+                   else torch.zeros(tuple(l.shape), dtype=l.dtype,
+                                    device=device).expand(
+                                        (T,) + tuple(l.shape))), col)
 
 
 def _stack_masks(masks, device, d):
@@ -446,9 +449,8 @@ class Unfold(GenFn):
         step_tr, _ = self.step.generate(gen, (0, state0) + params,
                                         self._layout_cm(dense, by_t, device))
         col = _col_tree(_slim_steps(step_tr), step_tr.get_retval())
-        stacked = _zeros_stacked(col, self.T, device)
-        store = make_storage(stacked, _storage_spec(self, stacked, b),
-                             self.T, batched=b is not None)
+        spec = _storage_spec(self, _zeros_stacked(col, self.T, device), b)
+        store = zeros_storage(col, spec, self.T, batched=b is not None)
         carry = tree_map(torch.zeros_like, step_tr.get_retval())
         score = _zeros(b, device)
         return Trace(self, (0, state0) + params, None, score,
@@ -463,7 +465,11 @@ class Unfold(GenFn):
         if k == 0:
             return (Trace(self, args, None, tr0.score, tr0.inner),
                     torch.zeros_like(tr0.score))
-        new_tr, logq, _ = self._update_extend(gen, tr0, args, constraints, k)
+        # the empty store is this call's own: extended in place
+        store = tr0.inner["store"]
+        with owned([storage_of(store.mat)] if store.batched else []):
+            new_tr, logq, _ = self._update_extend(gen, tr0, args,
+                                                  constraints, k)
         return new_tr, new_tr.score - logq
 
     def simulate(self, gen, args):
@@ -598,7 +604,9 @@ class Unfold(GenFn):
     def _update_extend(self, gen, tr: Trace, new_args,
                        constraints: ChoiceMap, k: int):
         """O(k) trace extension: run only the k newly activated steps and
-        write their rows into a copy of the packed storage."""
+        write their rows into the packed storage: in place where the
+        writer owns it (``core/packed.py`` :func:`owned`), else into a
+        copy."""
         b = current_batch()
         t_new, state0, params = self._split_args(new_args)
         t_old = tr.inner["t"]

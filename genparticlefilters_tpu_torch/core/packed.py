@@ -21,12 +21,18 @@ N]``) and the per-particle form inside a ``vmap_gfi`` map (``mat
 [T*R]``); ``mat.dim()`` says which an instance is in, so mapping the
 particle axis at ``mat`` axis 1 turns one into the other. Writes are
 copy-on-write: every writer returns a storage with new tensors and leaves
-its input untouched; the per-particle form writes out of place (a mapped
-value cannot be written into an unmapped tensor).
+its input untouched, except where the store is the writer's own
+(:func:`owned`: a trace the caller donates, or an empty trace the writer
+built itself), which :func:`write_steps` writes in place, as XLA writes a
+``dynamic_update_slice`` into its dead operand's buffer under ``jit``.
+The per-particle form writes out of place (a mapped value cannot be
+written into an unmapped tensor). ``STORE_WRITES`` counts the batched
+writes of each kind.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Tuple
 
 import torch
@@ -36,13 +42,75 @@ from .tree import tree_flatten, tree_unflatten, flatten_up_to
 __all__ = ["StepStorage", "StorageLayout", "LeafSpec", "make_storage",
            "unpack_tree", "read_step", "write_steps", "zeros_column",
            "pack_column", "fits_layout", "put_rows", "StaticColumn",
-           "holds_store", "put_extra"]
+           "holds_store", "put_extra", "owned", "storage_of", "is_whole",
+           "zeros_storage", "STORE_WRITES"]
 
 _KIND_MAT = 0
 _KIND_EXTRA = 1
 _KIND_ZERO = 2
 
 _PACKABLE = (torch.float32, torch.int32, torch.bool)
+
+#: the batched writes of :func:`write_steps`: ``copied``, into a copy of
+#: the whole ``mat``; ``in_place``, into an owned ``mat`` itself
+STORE_WRITES = {"copied": 0, "in_place": 0}
+
+# one (storage addresses, holder) per owned() scope
+_OWNED: list = []
+
+
+def storage_of(x) -> int:
+    """The address of ``x``'s storage: tensors that share one share it."""
+    return x.untyped_storage().data_ptr()
+
+
+def is_whole(x) -> bool:
+    """Whether ``x`` is its whole storage, contiguous from offset 0."""
+    return (x.is_contiguous() and x.storage_offset() == 0
+            and x.untyped_storage().nbytes() == x.numel() * x.itemsize)
+
+
+def _alone(x) -> bool:
+    """Whether ``x`` is the only tensor on its storage, anywhere: every
+    tensor on a storage holds one count of it, as does the handle read
+    here (the count PyTorch's CUDA-graph trees read to tell a live
+    storage). A view, a tensor that shares the storage, or one that waits
+    for the garbage collector makes it False."""
+    return torch._C._storage_Use_Count(x.untyped_storage()._cdata) == 2
+
+
+def _held_once(holder, at: int) -> bool:
+    """Whether exactly one non-empty tensor leaf of ``holder`` is on the
+    storage at address ``at``."""
+    return sum(1 for x in tree_flatten(holder)[0]
+               if isinstance(x, torch.Tensor) and x.numel()
+               and storage_of(x) == at) == 1
+
+
+@contextlib.contextmanager
+def owned(storages, holder=None):
+    """Inside: the writers own the storages ``storages`` (addresses, as
+    :func:`storage_of` gives them), which nothing reads after the call, so
+    :func:`write_steps` writes a store whose ``mat`` is one of them, whole,
+    in place. Given the tree ``holder`` that donates them (a state), a
+    storage is owned only where no other tensor leaf of ``holder`` shares
+    it: read from the leaves only where ``mat`` is not alone on its
+    storage. Scopes nest; a storage any of them owns is owned."""
+    _OWNED.append((frozenset(storages), holder))
+    try:
+        yield
+    finally:
+        _OWNED.pop()
+
+
+def _owns(mat) -> bool:
+    if not _OWNED or mat.numel() == 0 or not is_whole(mat):
+        return False
+    at = storage_of(mat)
+    alone = _alone(mat)
+    return any(at in mine and (alone or holder is None
+                               or _held_once(holder, at))
+               for mine, holder in _OWNED)
 
 
 class LeafSpec(NamedTuple):
@@ -183,6 +251,35 @@ def _prod(t):
     return p
 
 
+def _leaf_specs(leaves, spec_elems, T: int, batched: bool):
+    """The :class:`LeafSpec` of each leaf of a logical stacked tree (read
+    for its shape and dtype only) and the packed rows per step ``R``."""
+    specs, off, n_extras = [], 0, 0
+    for leaf, ax in zip(leaves, spec_elems):
+        if isinstance(leaf, StaticColumn):
+            specs.append(LeafSpec(_KIND_EXTRA, n_extras, 0, None, (), None))
+            n_extras += 1
+            continue
+        shape = tuple(leaf.shape)
+        pax = ax if isinstance(ax, int) else None
+        packable = (leaf.dtype in _PACKABLE and len(shape) >= 1
+                    and shape[0] == T and pax is not None
+                    and (not batched or len(shape) > pax))
+        if not packable:
+            specs.append(LeafSpec(_KIND_EXTRA, n_extras, 0, leaf.dtype,
+                                  (), pax))
+            n_extras += 1
+            continue
+        tail = (shape[1:pax] + shape[pax + 1:]) if batched else shape[1:]
+        if _prod(shape) == 0:
+            specs.append(LeafSpec(_KIND_ZERO, -1, 0, leaf.dtype, tail, pax))
+            continue
+        w = _prod(tail)
+        specs.append(LeafSpec(_KIND_MAT, off, w, leaf.dtype, tail, pax))
+        off += w
+    return specs, off
+
+
 def make_storage(tree, spec, T: int, batched: bool = True) -> StepStorage:
     """Build packed storage from the logical stacked tree (leaves
     ``[T, ...]``) and its particle-axis spec tree (int or ``None`` per
@@ -192,48 +289,64 @@ def make_storage(tree, spec, T: int, batched: bool = True) -> StepStorage:
     and becomes ``[T, w, N]`` rows. ``batched=False`` builds the
     per-particle form (inside a ``vmap_gfi`` map, where the spec position
     records where the map inserts the particle axis): ``[T, ...]`` leaves
-    become ``[T, w]`` rows."""
+    become ``[T, w]`` rows. The batched ``mat`` is a tensor of its own,
+    not a view, so that a writer may own it (:func:`owned`)."""
     leaves, treedef = tree_flatten(tree)
-    spec_elems = flatten_up_to(treedef, spec)
-    specs, parts, extras = [], [], []
-    off = 0
-    for leaf, ax in zip(leaves, spec_elems):
-        if isinstance(leaf, StaticColumn):
-            specs.append(LeafSpec(_KIND_EXTRA, len(extras), 0, None, (),
-                                  None))
+    specs, R = _leaf_specs(leaves, flatten_up_to(treedef, spec), T,
+                           batched)
+    parts, extras = [], []
+    for leaf, s in zip(leaves, specs):
+        if s.kind == _KIND_EXTRA:
             extras.append(leaf)
-            continue
-        shape = tuple(leaf.shape)
-        pax = ax if isinstance(ax, int) else None
-        packable = (leaf.dtype in _PACKABLE and len(shape) >= 1
-                    and shape[0] == T and pax is not None
-                    and (not batched or len(shape) > pax))
-        if not packable:
-            specs.append(LeafSpec(_KIND_EXTRA, len(extras), 0, leaf.dtype,
-                                  (), pax))
-            extras.append(leaf)
-            continue
-        tail = (shape[1:pax] + shape[pax + 1:]) if batched else shape[1:]
-        if _prod(shape) == 0:
-            specs.append(LeafSpec(_KIND_ZERO, -1, 0, leaf.dtype, tail, pax))
-            continue
-        x = _to_i32(leaf, leaf.dtype)
-        w = _prod(tail)
-        if batched:
-            if pax != len(shape) - 1:
-                x = torch.movedim(x, pax, -1)
-            x = x.reshape(T, w, shape[pax])
-        else:
-            x = x.reshape(T, w)
-        specs.append(LeafSpec(_KIND_MAT, off, w, leaf.dtype, tail, pax))
-        off += w
-        parts.append(x)
-    R = off
+        elif s.kind == _KIND_MAT:
+            x = _to_i32(leaf, s.dtype)
+            if not batched:
+                parts.append(x.reshape(T, s.width))
+                continue
+            if s.pax != leaf.dim() - 1:
+                x = torch.movedim(x, s.pax, -1)
+            parts.append(x.reshape(T, s.width, leaf.shape[s.pax]))
     mat = None
-    if parts:
-        cat = torch.cat(parts, dim=1)
-        mat = (cat.reshape(T * R, -1).contiguous() if batched
-               else cat.reshape(T * R))
+    if parts and batched:
+        mat = torch.empty((T * R, parts[0].shape[-1]), dtype=torch.int32,
+                          device=parts[0].device)
+        torch.cat(parts, dim=1, out=mat.view(T, R, -1))
+    elif parts:
+        mat = torch.cat(parts, dim=1).reshape(T * R)
+    return StepStorage(mat, tuple(extras),
+                       StorageLayout(treedef, tuple(specs), T, R))
+
+
+def zeros_storage(col, spec, T: int, batched: bool = True) -> StepStorage:
+    """The packed storage of ``T`` steps of structural zeros, whose
+    per-step column tree is ``col`` (tensors, and Python numbers stored as
+    a :class:`StaticColumn`) and whose spec is ``spec`` (of the stacked
+    tree, as :func:`make_storage` takes it): one zero-filled ``mat``
+    (all-zero words are the float32, int32 and bool zeros, so it holds the
+    bits :func:`make_storage` packs from zeros) and zero extras, each
+    allocated once."""
+    leaves, treedef = tree_flatten(col)
+    stacked = [StaticColumn([type(l)(0)] * T)
+               if isinstance(l, (bool, int, float))
+               else torch.empty((T,) + tuple(l.shape), dtype=l.dtype,
+                                device="meta")
+               for l in leaves]
+    specs, R = _leaf_specs(stacked, flatten_up_to(treedef, spec), T,
+                           batched)
+    extras, n, device = [], None, None
+    for leaf, x, s in zip(leaves, stacked, specs):
+        if isinstance(x, StaticColumn):
+            extras.append(x)
+            continue
+        if s.kind == _KIND_EXTRA:
+            extras.append(torch.zeros(tuple(x.shape), dtype=x.dtype,
+                                      device=leaf.device))
+        elif s.kind == _KIND_MAT:
+            n, device = x.shape[s.pax] if batched else None, leaf.device
+    mat = None
+    if R:
+        mat = torch.zeros((T * R,) if n is None else (T * R, n),
+                          dtype=torch.int32, device=device)
     return StepStorage(mat, tuple(extras),
                        StorageLayout(treedef, tuple(specs), T, R))
 
@@ -251,23 +364,14 @@ def _column_from_rows(rows, s: LeafSpec):
     return _from_i32(x, s.dtype)
 
 
-def _rows_from_column(v, s: LeafSpec, n, device):
-    """Logical per-step column value -> [w, N] slab rows (``n`` None: the
-    per-particle form's [w]). Under-shaped values (shared or scalar values
-    written into a per-particle leaf) broadcast in."""
+def _rows_from_column(v, s: LeafSpec, device):
+    """Logical per-step column value -> the per-particle form's ``[w]``
+    slab rows. Under-shaped values (shared or scalar values written into a
+    per-particle leaf) broadcast in."""
     x = torch.as_tensor(v, device=device).to(s.dtype)
-    if n is None:
-        if tuple(x.shape) != s.tail:
-            x = x.expand(s.tail)
-        return _to_i32(x, s.dtype).reshape(s.width)
-    cax = s.pax - 1
-    full = s.tail[:cax] + (n,) + s.tail[cax:]
-    if tuple(x.shape) != full:
-        x = x.expand(full)
-    x = _to_i32(x, s.dtype)
-    if cax != len(full) - 1:
-        x = torch.movedim(x, cax, -1)
-    return x.reshape(s.width, n)
+    if tuple(x.shape) != s.tail:
+        x = x.expand(s.tail)
+    return _to_i32(x, s.dtype).reshape(s.width)
 
 
 def _unpack_leaf(st: StepStorage, s: LeafSpec, m3):
@@ -354,21 +458,49 @@ def zeros_column(st: StepStorage):
     return tree_unflatten(lo.treedef, out)
 
 
-def pack_column(st: StepStorage, col_tree):
-    """Logical per-step column tree -> ``(slab [R, N], extra_cols)``."""
-    lo = st.layout
-    n = st.n
-    cols = flatten_up_to(lo.treedef, col_tree)
+def _put_column(dst, v, s: LeafSpec, n):
+    """Write the logical per-step column value ``v`` into its ``[w, N]``
+    rows ``dst`` of the batched form, in one copy: under-shaped values
+    (shared or scalar values written into a per-particle leaf) broadcast
+    in."""
+    x = torch.as_tensor(v, device=dst.device).to(s.dtype)
+    cax = s.pax - 1
+    full = s.tail[:cax] + (n,) + s.tail[cax:]
+    d = dst.view(s.tail + (n,))
+    if cax != len(full) - 1:
+        d = torch.movedim(d, -1, cax)
+    if s.dtype == torch.float32:
+        d = d.view(torch.float32)
+    d.copy_(x if tuple(x.shape) == full else x.expand(full))
+
+
+def _pack(st: StepStorage, vals, out=None):
+    """:func:`pack_column` of a column flattened to ``st``'s specs. The
+    batched form writes each packed leaf into its rows of ``out`` (int32
+    ``[R, N]``), which is the slab; the per-particle form concatenates the
+    leaves' ``[w]`` rows."""
     parts = []
     extra_cols = [None] * len(st.extras)
-    for v, s in zip(cols, lo.specs):
+    for v, s in zip(vals, st.layout.specs):
         if s.kind == _KIND_MAT:
-            parts.append(_rows_from_column(v, s, n, st.mat.device))
+            if out is None:
+                parts.append(_rows_from_column(v, s, st.mat.device))
+            else:
+                _put_column(out[s.off:s.off + s.width], v, s, st.n)
         elif s.kind == _KIND_EXTRA:
             extra_cols[s.off] = v
-    if not parts:
-        return None, extra_cols
+    if out is not None or not parts:
+        return out, extra_cols
     return torch.cat(parts, dim=0), extra_cols
+
+
+def pack_column(st: StepStorage, col_tree):
+    """Logical per-step column tree -> ``(slab [R, N], extra_cols)``."""
+    out = None
+    if st.batched:
+        out = torch.empty((st.layout.R, st.n), dtype=torch.int32,
+                          device=st.mat.device)
+    return _pack(st, flatten_up_to(st.layout.treedef, col_tree), out)
 
 
 def fits_layout(st: StepStorage, cols) -> bool:
@@ -418,32 +550,56 @@ def put_extra(e, t: int, v, per_particle: bool, copied: bool):
     return e
 
 
+def _apart(flat, specs, mat):
+    """Flattened columns with each packed value that shares ``mat``'s
+    storage cloned, so that a write into ``mat`` in place reads nothing it
+    has written (a re-scan's column keeps views of the old rows)."""
+    at = storage_of(mat)
+
+    def shares(v, s):
+        return (s.kind == _KIND_MAT and isinstance(v, torch.Tensor)
+                and v.numel() > 0 and storage_of(v) == at)
+    return [[v.clone() if shares(v, s) else v for v, s in zip(vals, specs)]
+            for vals in flat]
+
+
 def write_steps(st: StepStorage, t0: int, cols) -> StepStorage:
     """Write ``k = len(cols)`` consecutive per-step column trees starting
-    at step ``t0``: ONE ``[k*R, N]`` slab write on a copy of ``mat`` plus
-    per-extra row writes on copies of the extras (per particle: out of
-    place, :func:`put_rows`)."""
+    at step ``t0``: each packed leaf's rows written into ``mat`` in place
+    where the writer owns it (:func:`owned`), else into a copy of the
+    whole ``mat`` (counted in ``STORE_WRITES``), plus per-extra row writes
+    on copies of the extras (per particle: all out of place,
+    :func:`put_rows`)."""
     lo = st.layout
-    per_particle = st.mat is not None and not st.batched
+    mat = st.mat
+    batched = mat is not None and st.batched
+    per_particle = mat is not None and not st.batched
+    flat = [flatten_up_to(lo.treedef, c) for c in cols]
+    if batched and flat:
+        if _owns(mat):
+            STORE_WRITES["in_place"] += 1
+            if not _alone(mat):
+                flat = _apart(flat, lo.specs, mat)
+        else:
+            STORE_WRITES["copied"] += 1
+            mat = mat.clone(memory_format=torch.contiguous_format)
     extras = list(st.extras)
     copied = set()
     slabs = []
-    for j, col in enumerate(cols):
-        slab, extra_cols = pack_column(st, col)
-        if slab is not None:
-            slabs.append(slab)
+    for j, vals in enumerate(flat):
+        t = t0 + j
+        if batched:
+            _, extra_cols = _pack(st, vals, out=mat[t * lo.R:(t + 1) * lo.R])
+        else:
+            slab, extra_cols = _pack(st, vals)
+            if slab is not None:
+                slabs.append(slab)
         for i, v in enumerate(extra_cols):
             if v is None:
                 continue
-            extras[i] = put_extra(extras[i], t0 + j, v, per_particle,
+            extras[i] = put_extra(extras[i], t, v, per_particle,
                                   i in copied)
             copied.add(i)
-    mat = st.mat
-    if slabs and mat is not None:
-        if per_particle:
-            mat = put_rows(mat, t0 * lo.R, torch.cat(slabs, dim=0))
-        else:
-            mat = mat.clone()
-            mat[t0 * lo.R:(t0 + len(slabs)) * lo.R] = torch.cat(slabs,
-                                                                dim=0)
+    if slabs:
+        mat = put_rows(mat, t0 * lo.R, torch.cat(slabs, dim=0))
     return StepStorage(mat, tuple(extras), lo)

@@ -127,7 +127,8 @@ def object_motion_filter_impl(gen, y_obs, n_particles: int, t_max: int,
                             donate=True)
         with _span("om.update"):
             state = pf_update(gen, state, (t + 1, x0),
-                              (Extend(1), NoChange()), obs, check=False)
+                              (Extend(1), NoChange()), obs, check=False,
+                              donate=True)
     return state
 
 

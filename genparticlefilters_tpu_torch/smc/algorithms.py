@@ -14,7 +14,9 @@ graph whose branch runs only where the predicate holds (the loop
 unrolls, as ``lax.scan`` is lowered) and no host read. The loop rebinds
 ``state`` to the branch's result and keeps no other reference to it, so
 each call donates it (``donate=True``): a taken branch writes its result
-back into the state's own tensors and an untaken one does nothing. Given a particle ``mesh`` (parallel/mesh.py),
+back into the state's own tensors and an untaken one does nothing, and
+the update writes the new step into the state's trace store in place.
+Given a particle ``mesh`` (parallel/mesh.py),
 :func:`run_particle_filter` runs each rank's block of the particles: the
 ESS is global, so every rank takes the same branch, and the resample is
 the exact global one. Each phase runs in a ``torch.profiler`` span:
@@ -130,7 +132,7 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
             donate=True)
         with span(f"{span_prefix}.update"):
             state = pf_update(gen, state, step_args_fn(t), diffs, obs_fn(t),
-                              check=False)
+                              check=False, donate=True)
     return state
 
 
@@ -172,5 +174,5 @@ def tempered_smc(gen, model: GenFn, betas, n_particles: int,
         with span(f"{span_prefix}.update"):
             state = pf_update(gen, state, args,
                               tuple(UnknownChange() for _ in args), EMPTY,
-                              check=False)
+                              check=False, donate=True)
     return state, log_ml_estimate(state)

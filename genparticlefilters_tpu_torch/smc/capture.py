@@ -63,11 +63,13 @@ import numpy as np
 import torch
 
 from ..core.batching import BOUNDARY
+from ..core.packed import STORE_WRITES, is_whole, storage_of
 from ..core.gfi import GenFn
 from ..core.tree import tree_flatten, tree_unflatten
 from ..utils.spans import RUN, arm_device_spans, span
 
-__all__ = ["device_cond", "host_pred", "capture", "CapturedRun"]
+__all__ = ["device_cond", "host_pred", "capture", "CapturedRun",
+           "static_inputs"]
 
 # > 0 while capture() warms up: device_cond runs its select form eagerly
 _WARMING = [0]
@@ -147,29 +149,23 @@ def _select(pred, branch, state):
         else o for x, o in zip(in_leaves, out_leaves)])
 
 
-def _storage(x) -> int:
-    return x.untyped_storage().data_ptr()
-
-
 def _donatable(leaves, inputs) -> set:
     """The indices of the tensor leaves of ``leaves`` that a branch's
     result may be written into: empty, or a whole contiguous storage that
     no other leaf and none of ``inputs`` (storage addresses) shares."""
     tensors = [x for x in leaves if isinstance(x, torch.Tensor) and x.numel()]
-    holders = collections.Counter(_storage(x) for x in tensors)
+    holders = collections.Counter(storage_of(x) for x in tensors)
     return {i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)
             and (x.numel() == 0 or (
-                x.is_contiguous() and x.storage_offset() == 0
-                and x.untyped_storage().nbytes() == x.numel() * x.itemsize
-                and holders[_storage(x)] == 1
-                and _storage(x) not in inputs))}
+                is_whole(x) and holders[storage_of(x)] == 1
+                and storage_of(x) not in inputs))}
 
 
 def _readable(o, written) -> torch.Tensor:
     """``o`` as a copy source: contiguous, and cloned where its storage is
     one that the same copy writes (a view of a donated leaf), so that one
     launch never reads what it writes."""
-    if not o.is_contiguous() or (o.numel() and _storage(o) in written):
+    if not o.is_contiguous() or (o.numel() and storage_of(o) in written):
         return o.clone(memory_format=torch.contiguous_format)
     return o
 
@@ -201,7 +197,7 @@ def _if_form(new_node, branch, state, inputs=None):
                     if isinstance(o, torch.Tensor) and o is not x]
         dsts = {i: in_leaves[i] if i in own else node.alloc(in_leaves[i])
                 for i in replaced}
-        written = {_storage(in_leaves[i]) for i in replaced
+        written = {storage_of(in_leaves[i]) for i in replaced
                    if i in own and in_leaves[i].numel()}
         node.copy(list(dsts.values()),
                   [_readable(out_leaves[i], written) for i in replaced])
@@ -227,7 +223,8 @@ class _Bodies:
     graph's allocations to its pool by capture id, misses it; the pool is
     kept as long as the graph. ``inputs`` holds the storage addresses of
     the capture's static inputs, which no IF node writes; ``nodes`` the IF
-    nodes made."""
+    nodes made; ``writes`` the ``STORE_WRITES`` their bodies made, which a
+    replay runs only where a check is taken."""
 
     def __init__(self, device, inputs=frozenset()):
         self.device = device
@@ -237,6 +234,7 @@ class _Bodies:
         self.active = False
         self.inputs = inputs
         self.nodes = []
+        self.writes = dict.fromkeys(STORE_WRITES, 0)
 
     def capture(self, graph, fn):
         """``fn()`` with its work captured into the body ``graph`` on the
@@ -247,6 +245,7 @@ class _Bodies:
                 "device_cond inside a device_cond branch under capture: "
                 "nested conditional nodes are not built")
         self.active = True
+        writes = dict(STORE_WRITES)
         try:
             with torch.cuda.use_mem_pool(self.pool, self.device), \
                     torch.cuda.stream(self.stream), \
@@ -264,6 +263,8 @@ class _Bodies:
             ) from e
         finally:
             self.active = False
+            for k, v in writes.items():
+                self.writes[k] += STORE_WRITES[k] - v
 
 
 class _CardNode:
@@ -361,6 +362,24 @@ def _buffered_form():
 
 
 @contextlib.contextmanager
+def _under(bodies):
+    """Inside: ``bodies`` belong to the capture under way (its warm-up
+    too), whose static inputs :func:`static_inputs` then holds."""
+    _BODIES.append(bodies)
+    try:
+        yield
+    finally:
+        _BODIES.remove(bodies)
+
+
+def static_inputs() -> frozenset:
+    """The storage addresses of the static inputs of the captures under
+    way, which nothing they run may write in place: every replay reads
+    them."""
+    return frozenset().union(*(b.inputs for b in _BODIES))
+
+
+@contextlib.contextmanager
 def _warming():
     _WARMING[0] += 1
     try:
@@ -442,10 +461,13 @@ class CapturedRun:
     ``pool_bytes`` the device memory the capture's pools reached beyond
     what was allocated before it, ``nodes`` the IF nodes in the graph (one
     per :func:`device_cond`). ``bodies`` keeps the IF bodies' pool as long
-    as the graph; :attr:`forms` counts what its nodes hold."""
+    as the graph; :attr:`forms` counts what its nodes hold.
+    ``store_writes`` holds the captured run's ``STORE_WRITES``
+    (``core/packed.py``) outside the IF bodies, so those of every replay:
+    the packed stores it copied whole and wrote in place."""
 
     def __init__(self, fn, graph, inputs, out, capture_seconds, pool_bytes,
-                 nodes=0, bodies=None):
+                 nodes=0, bodies=None, store_writes=None):
         self.fn = fn
         self.graph = graph
         self.inputs = inputs
@@ -454,6 +476,7 @@ class CapturedRun:
         self.pool_bytes = pool_bytes
         self.nodes = nodes
         self.bodies = bodies
+        self.store_writes = store_writes
 
     @property
     def forms(self) -> dict:
@@ -527,8 +550,9 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     - one run is captured into a private pool, with ``gen`` registered,
       each :func:`device_cond` an IF node whose bodies are captured on a
       stream of their own into a second pool, kept with the graph; the
-      static inputs' storages are registered with it, so that no IF node
-      donates them. The run is one ``captured.run`` span; where
+      static inputs' storages are registered with it and the warm-up
+      (:func:`static_inputs`), so that no IF node and no donated update
+      writes them. The run is one ``captured.run`` span; where
       ``torch.profiler`` runs, its spans become device markers in the
       graph (``utils/spans.py``), whose library is loaded before the
       capture is timed.
@@ -566,9 +590,12 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device=device)
     side.wait_stream(main)
+    bodies = _Bodies(device, frozenset(
+        storage_of(x) for x in _plain_leaves((s_args, s_kw))
+        if isinstance(x, torch.Tensor)))
     gen_state = gen.get_state()
     maps = BOUNDARY["calls"]
-    with torch.cuda.stream(side), _warming():
+    with torch.cuda.stream(side), _warming(), _under(bodies):
         fn(gen, *s_args, **s_kw)
     main.wait_stream(side)
     if BOUNDARY["calls"] != maps:
@@ -580,9 +607,6 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     from ..ops.graph_cond import if_node
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(gen)
-    bodies = _Bodies(device, frozenset(
-        _storage(x) for x in _plain_leaves((s_args, s_kw))
-        if isinstance(x, torch.Tensor)))
     # the warm-up's garbage freed now, not inside the capture, where it
     # would lower pool_bytes by what it held
     gc.collect()
@@ -591,15 +615,14 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     torch.cuda.reset_peak_memory_stats(device)
     nodes = if_node.launches
     arm_device_spans()
+    writes = dict(STORE_WRITES)
     t0 = time.perf_counter()
-    _BODIES.append(bodies)
-    try:
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="global"), span(RUN):
-            out = fn(gen, *s_args, **s_kw)
-    finally:
-        _BODIES.remove(bodies)
+    with _under(bodies), torch.cuda.graph(
+            graph, stream=side, capture_error_mode="global"), span(RUN):
+        out = fn(gen, *s_args, **s_kw)
     seconds = time.perf_counter() - t0
     pool = torch.cuda.max_memory_allocated(device) - before
     return CapturedRun(fn, graph, (s_args, s_kw), out, seconds, pool,
-                       if_node.launches - nodes, bodies)
+                       if_node.launches - nodes, bodies,
+                       {k: STORE_WRITES[k] - v - bodies.writes[k]
+                        for k, v in writes.items()})

@@ -23,12 +23,15 @@ meet a translator, it runs per particle
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 from .. import config as _config
 from ..core.batching import vmap_gfi, check_batched_layout, layout_key
 from ..core.choicemap import ChoiceMap, EMPTY
 from ..core.gfi import GenFn, batched_interpretation
+from ..core.packed import StepStorage, owned, storage_of
+from .capture import static_inputs
 from .initialize import _per_particle_strata, _batch_safe
 from .state import ParticleFilterSubState
 from .translate import (ExtendingTraceTranslator, UpdatingTraceTranslator,
@@ -75,15 +78,40 @@ def _with_stratum(translator, stratum):
     return out
 
 
+def _donated(state, donate: bool):
+    """The scope in which the model's update owns the packed stores that
+    ``state``'s traces hold at their top (an Unfold's), less the static
+    inputs of a capture under way; the writer takes one only whole and
+    held by no other leaf of ``state`` (``core/packed.py``
+    :func:`owned`). No scope for a view or without ``donate``."""
+    if not donate or isinstance(state, ParticleFilterSubState):
+        return contextlib.nullcontext()
+    inner = state.traces.inner
+    stores = inner.values() if isinstance(inner, dict) else ()
+    return owned({storage_of(st.mat) for st in stores
+                  if isinstance(st, StepStorage) and st.mat is not None}
+                 - static_inputs(), state)
+
+
 def pf_update(gen, state, new_args=None, argdiffs=None,
               observations: ChoiceMap = EMPTY,
               proposal: GenFn | None = None, proposal_args=None,
               bwd_proposal: GenFn | None = None, bwd_args=None,
               transform=None, translator=None, strata=None,
               layout: str = "interleaved", check: bool | None = None,
-              prev_observations: ChoiceMap = EMPTY, translator_kwargs=None):
+              prev_observations: ChoiceMap = EMPTY, translator_kwargs=None,
+              donate: bool = False):
     """Propagate every particle one step and reweight. Returns a new
-    state (the full state when given a view)."""
+    state (the full state when given a view).
+
+    ``donate=True`` is the caller's promise that ``state`` is dead after
+    the call (a loop that rebinds it), as with ``device_cond(donate=)``:
+    the model's batched update may then write the new steps of the packed
+    trace store into the incoming store in place, where its storage is
+    whole, held by no other leaf of ``state`` and no static input of a
+    capture under way, instead of into a copy of the whole store. The default leaves ``state``
+    untouched. Views, translators and the per-particle interpretation
+    ignore it."""
     traces, log_weights, n, scatter = _block(state)
 
     if translator is None and proposal is not None and bwd_proposal is None:
@@ -148,7 +176,7 @@ def pf_update(gen, state, new_args=None, argdiffs=None,
         return new_tr, w, discard
 
     if getattr(traces.gen_fn, "batch_safe", False):
-        with batched_interpretation(n):
+        with batched_interpretation(n), _donated(state, donate):
             new_traces, ws, discard = one(traces, per_particle)
         if _config.check_batched_layout and per_particle is None:
             check_batched_layout(

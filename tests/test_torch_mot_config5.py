@@ -378,7 +378,7 @@ def _old_run_particle_filter(gen, model, t_max, n_particles, step_args_fn,
             donate=True)
         with span(f"{span_prefix}.update"):
             state = tg.pf_update(gen, state, step_args_fn(t), diffs,
-                                 obs_fn(t), check=False)
+                                 obs_fn(t), check=False, donate=True)
     return state
 
 
