@@ -43,7 +43,8 @@ __all__ = ["StepStorage", "StorageLayout", "LeafSpec", "make_storage",
            "unpack_tree", "read_step", "write_steps", "zeros_column",
            "pack_column", "fits_layout", "put_rows", "StaticColumn",
            "holds_store", "put_extra", "owned", "storage_of", "is_whole",
-           "zeros_storage", "STORE_WRITES"]
+           "may_overwrite", "static_inputs", "zeros_storage",
+           "STORE_WRITES"]
 
 _KIND_MAT = 0
 _KIND_EXTRA = 1
@@ -57,6 +58,8 @@ STORE_WRITES = {"copied": 0, "in_place": 0}
 
 # one (storage addresses, holder) per owned() scope
 _OWNED: list = []
+# one set of storage addresses per static_inputs() scope
+_STATIC: list = []
 
 
 def storage_of(x) -> int:
@@ -79,37 +82,54 @@ def _alone(x) -> bool:
     return torch._C._storage_Use_Count(x.untyped_storage()._cdata) == 2
 
 
-def _held_once(holder, at: int) -> bool:
-    """Whether exactly one non-empty tensor leaf of ``holder`` is on the
-    storage at address ``at``."""
-    return sum(1 for x in tree_flatten(holder)[0]
-               if isinstance(x, torch.Tensor) and x.numel()
-               and storage_of(x) == at) == 1
-
-
 @contextlib.contextmanager
-def owned(storages, holder=None):
-    """Inside: the writers own the storages ``storages`` (addresses, as
-    :func:`storage_of` gives them), which nothing reads after the call, so
-    :func:`write_steps` writes a store whose ``mat`` is one of them, whole,
-    in place. Given the tree ``holder`` that donates them (a state), a
-    storage is owned only where no other tensor leaf of ``holder`` shares
-    it: read from the leaves only where ``mat`` is not alone on its
-    storage. Scopes nest; a storage any of them owns is owned."""
-    _OWNED.append((frozenset(storages), holder))
+def _pushed(stack: list, item):
+    stack.append(item)
     try:
         yield
     finally:
-        _OWNED.pop()
+        stack.pop()
+
+
+def static_inputs(storages):
+    """Inside: the storages at ``storages`` (addresses, as
+    :func:`storage_of` gives them) are a capture's static inputs, which
+    every replay reads: :func:`may_overwrite` refuses them."""
+    return _pushed(_STATIC, frozenset(storages))
+
+
+def may_overwrite(x, holder=None) -> bool:
+    """The one rule for writing in place: whether a writer may overwrite
+    the non-empty tensor ``x``, ``holder`` being the tree that donates it
+    and is dead after the call (``None``: ``x`` is the writer's own). It
+    may where ``x`` is its whole contiguous storage, no static input is
+    on that storage, and no other tensor of ``holder`` is (where none at
+    all is, by its use count, without a walk). It counts tensors, not the
+    places a tree holds one."""
+    if not is_whole(x):
+        return False
+    at = storage_of(x)
+    if any(at in s for s in _STATIC):
+        return False
+    return holder is None or _alone(x) or all(
+        y is x for y in tree_flatten(holder)[0]
+        if isinstance(y, torch.Tensor) and y.numel() and storage_of(y) == at)
+
+
+def owned(storages, holder=None):
+    """Inside: the writers own the storages ``storages`` (addresses),
+    which nothing reads after the call, so :func:`write_steps` writes a
+    store whose ``mat`` is one of them in place where
+    :func:`may_overwrite` allows it, ``holder`` their donating tree (a
+    state; ``None``: the writer built them). Scopes nest."""
+    return _pushed(_OWNED, (frozenset(storages), holder))
 
 
 def _owns(mat) -> bool:
-    if not _OWNED or mat.numel() == 0 or not is_whole(mat):
+    if not _OWNED or mat.numel() == 0:
         return False
     at = storage_of(mat)
-    alone = _alone(mat)
-    return any(at in mine and (alone or holder is None
-                               or _held_once(holder, at))
+    return any(at in mine and may_overwrite(mat, holder)
                for mine, holder in _OWNED)
 
 

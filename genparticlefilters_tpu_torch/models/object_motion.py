@@ -4,8 +4,8 @@ still or moving sinusoidally; the filter infers position ``y`` and the
 
 The filter runs init, then per step an ESS check, resampling (residual
 by default, as in the JAX package) plus windowed MH rejuvenation when ESS
-is low, and a one-step ``Extend`` update. ``object_motion_filter_impl``
-is the filter loop, its ESS branch a ``device_cond``: eager
+is low, and a one-step ``Extend`` update: ``run_particle_filter``, its
+ESS branch a ``device_cond``: eager
 (``object_motion_filter``) one host read per step; captured as one CUDA
 graph (``object_motion_filter_captured``, the JAX package's
 ``jit(object_motion_filter_impl)``) none.
@@ -20,12 +20,10 @@ import numpy as np
 import torch
 
 from ..core import (gen, trace, bernoulli, normal, Unfold, ChoiceMap, Entry,
-                    Selection, Extend, NoChange, batched_interpretation)
-from ..smc import (pf_initialize, pf_update, pf_resample, pf_rejuvenate,
-                   effective_sample_size, mh)
-from ..smc.capture import capture, device_cond, host_pred
+                    Selection, batched_interpretation)
+from ..smc import pf_rejuvenate, mh, run_particle_filter
+from ..smc.capture import capture
 from ..utils.device import entry_device
-from ..utils.spans import span as _span
 
 __all__ = ["make_object_motion", "init_state", "synthesize_data",
            "obs_at_t", "obs_dense", "object_motion_filter",
@@ -94,42 +92,26 @@ def object_motion_filter_impl(gen, y_obs, n_particles: int, t_max: int,
                               ess_frac: float = 0.5,
                               resample_method: str = "residual",
                               batch_safe: bool = True):
-    """The README particle-filter driver: resampling + MH rejuvenation
-    when ESS < ess_frac·N (a ``device_cond``), then a one-step extension
-    update, every random number drawn from ``gen``, on its device. Eager
-    it reads the ESS on the host once per step; under ``capture`` the
-    branch is an IF node inside the graph, run only where the predicate,
-    read on the card, holds."""
+    """The README particle filter through ``run_particle_filter``:
+    resampling + windowed MH rejuvenation when ESS < ess_frac·N (a
+    ``device_cond``: eager, a host read per step; under ``capture``, an IF
+    node), then a one-step extension update, every random number drawn
+    from ``gen``, on its device."""
     device = gen.device
     y_obs = torch.as_tensor(y_obs, dtype=torch.float32, device=device)
-    model = make_object_motion(t_max, batch_safe)
     x0 = init_state(device)
     obs = obs_dense(y_obs)  # static-True mask: shared y_obs storage
-    # the om.* spans name the filter's phases in a torch.profiler trace
-    with _span("om.initialize"):
-        state = pf_initialize(gen, model, (1, x0), obs, n_particles)
     steps = torch.arange(t_max, device=device)
 
-    def resample_rejuvenate(state, t):
-        with _span("om.resample"):
-            state = pf_resample(gen, state, resample_method, check=False)
-        with _span("om.rejuvenate"):
-            sel_mask = (steps == t - 1) | (steps == t)
-            sel = Selection({("moving",): sel_mask, ("y",): sel_mask})
-            return pf_rejuvenate(gen, state, mh, (sel,), window=2)
+    def rejuvenate(gen, state, t):
+        sel_mask = (steps == t - 1) | (steps == t)
+        sel = Selection({("moving",): sel_mask, ("y",): sel_mask})
+        return pf_rejuvenate(gen, state, mh, (sel,), window=2)
 
-    for t in range(1, t_max):
-        with _span("om.ess_check"):
-            low = host_pred(effective_sample_size(state)
-                            < ess_frac * n_particles)
-        # the loop rebinds state: the incoming one is dead after the call
-        state = device_cond(low, lambda s: resample_rejuvenate(s, t), state,
-                            donate=True)
-        with _span("om.update"):
-            state = pf_update(gen, state, (t + 1, x0),
-                              (Extend(1), NoChange()), obs, check=False,
-                              donate=True)
-    return state
+    return run_particle_filter(
+        gen, make_object_motion(t_max, batch_safe), t_max, n_particles,
+        lambda t: (t + 1, x0), lambda t: obs, ess_frac, resample_method,
+        rejuvenate_fn=rejuvenate, span_prefix="om")
 
 
 def object_motion_filter(gen, y_obs, n_particles: int, t_max: int,

@@ -22,7 +22,7 @@ ESS is global, so every rank takes the same branch, and the resample is
 the exact global one. Each phase runs in a ``torch.profiler`` span:
 ``{span_prefix}.initialize``, ``.resize``, ``.ess_check``, ``.resample``,
 ``.rejuvenate`` and ``.update``; each model's wrapper passes its own
-prefix (``sv``, ``tm``, ``mot``).
+prefix (``om``, ``sv``, ``tm``, ``mot``).
 """
 
 from __future__ import annotations
@@ -43,6 +43,14 @@ from .resize import pf_resize
 from .capture import device_cond, host_pred
 
 __all__ = ["run_particle_filter", "tempered_smc"]
+
+
+def _ess_low(state, ess_frac: float, span_prefix: str):
+    """The ESS check, in a ``{span_prefix}.ess_check`` span: ESS below
+    ``ess_frac`` times the count the state holds (:func:`host_pred`)."""
+    with span(f"{span_prefix}.ess_check"):
+        return host_pred(effective_sample_size(state)
+                         < ess_frac * num_particles(state))
 
 
 def _resample_rejuvenate(gen, state, resample_method, rejuvenate_fn, at,
@@ -124,9 +132,7 @@ def run_particle_filter(gen, model: GenFn, t_max: int, n_particles: int,
             n_new, method = schedule[t]
             with span(f"{span_prefix}.resize"):
                 state = pf_resize(gen, state, n_new, method, check=False)
-        with span(f"{span_prefix}.ess_check"):
-            low = host_pred(effective_sample_size(state)
-                            < ess_frac * num_particles(state))
+        low = _ess_low(state, ess_frac, span_prefix)
         state = device_cond(low, lambda s: _resample_rejuvenate(
             gen, s, resample_method, rejuvenate_fn, t, span_prefix), state,
             donate=True)
@@ -164,9 +170,7 @@ def tempered_smc(gen, model: GenFn, betas, n_particles: int,
                               n_particles)
     for i in range(1, betas.shape[0]):
         beta = betas[i]
-        with span(f"{span_prefix}.ess_check"):
-            low = host_pred(effective_sample_size(state)
-                            < ess_frac * n_particles)
+        low = _ess_low(state, ess_frac, span_prefix)
         state = device_cond(low, lambda s: _resample_rejuvenate(
             gen, s, resample_method, rejuvenate_fn, beta, span_prefix), state,
             donate=True)

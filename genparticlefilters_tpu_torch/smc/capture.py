@@ -11,12 +11,11 @@
   operand's buffers to the result) each replaced leaf is written back
   into the incoming tensor, so an untaken check has no work at all and,
   where every leaf can be donated, the node has no ELSE body. A leaf that
-  cannot be donated (its storage
-  shared with another leaf or with a static input of the capture, or not
-  a whole contiguous storage), and every leaf without ``donate``, goes
-  to a fresh buffer, which the THEN body fills from the result and an
-  ELSE body from the incoming leaf. At replay only the taken body runs
-  and the predicate stays on the card.
+  cannot be donated (one that ``core/packed.py`` ``may_overwrite``
+  refuses, or a tensor the state holds twice), and every leaf without
+  ``donate``, goes to a fresh buffer, which the THEN body fills from the
+  result and an ELSE body from the incoming leaf. At replay only the
+  taken body runs and the predicate stays on the card.
   Either way, a branch that returns another structure, leaf shape or
   dtype than it was given raises ``TypeError``, as ``lax.cond`` does.
 - ``_select`` is the IF node's plain version, ``lax.cond`` under
@@ -63,13 +62,13 @@ import numpy as np
 import torch
 
 from ..core.batching import BOUNDARY
-from ..core.packed import STORE_WRITES, is_whole, storage_of
+from ..core.packed import (STORE_WRITES, may_overwrite, static_inputs,
+                           storage_of)
 from ..core.gfi import GenFn
 from ..core.tree import tree_flatten, tree_unflatten
 from ..utils.spans import RUN, arm_device_spans, span
 
-__all__ = ["device_cond", "host_pred", "capture", "CapturedRun",
-           "static_inputs"]
+__all__ = ["device_cond", "host_pred", "capture", "CapturedRun"]
 
 # > 0 while capture() warms up: device_cond runs its select form eagerly
 _WARMING = [0]
@@ -149,16 +148,15 @@ def _select(pred, branch, state):
         else o for x, o in zip(in_leaves, out_leaves)])
 
 
-def _donatable(leaves, inputs) -> set:
+def _donatable(leaves) -> set:
     """The indices of the tensor leaves of ``leaves`` that a branch's
-    result may be written into: empty, or a whole contiguous storage that
-    no other leaf and none of ``inputs`` (storage addresses) shares."""
-    tensors = [x for x in leaves if isinstance(x, torch.Tensor) and x.numel()]
-    holders = collections.Counter(storage_of(x) for x in tensors)
+    result may be written into: empty, or one the core's rule lets a
+    writer overwrite (``leaves`` the donating tree) and held in one place
+    only (one tensor takes one result)."""
+    places = collections.Counter(id(x) for x in leaves)
     return {i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)
-            and (x.numel() == 0 or (
-                is_whole(x) and holders[storage_of(x)] == 1
-                and storage_of(x) not in inputs))}
+            and (x.numel() == 0 or (places[id(x)] == 1
+                                    and may_overwrite(x, leaves)))}
 
 
 def _readable(o, written) -> torch.Tensor:
@@ -170,12 +168,11 @@ def _readable(o, written) -> torch.Tensor:
     return o
 
 
-def _if_form(new_node, branch, state, inputs=None):
+def _if_form(new_node, branch, state, donate=False):
     """``device_cond`` on a conditional node ``new_node(bodies)``. Its THEN
     body runs ``branch(state)`` and copies, in one ``node.copy``, each
-    leaf the branch replaced into its destination: the incoming tensor
-    itself where ``inputs`` (the storage addresses of the capture's static
-    inputs; ``None``: donate nothing) allows it (:func:`_donatable`), else a
+    leaf the branch replaced into its destination: with ``donate``, the
+    incoming tensor itself where :func:`_donatable` allows it, else a
     buffer from ``node.alloc``, which the ELSE body fills from the incoming
     leaf. The node has an ELSE body only where some tensor leaf of
     ``state`` cannot be donated. The result holds the destinations where
@@ -184,7 +181,7 @@ def _if_form(new_node, branch, state, inputs=None):
     the two bodies (on the card, :class:`_CardNode`); ``node.donated`` and
     ``node.buffered`` count the leaves of each kind."""
     in_leaves, _ = tree_flatten(state)
-    own = set() if inputs is None else _donatable(in_leaves, inputs)
+    own = _donatable(in_leaves) if donate else set()
     one_body = all(i in own for i, x in enumerate(in_leaves)
                    if isinstance(x, torch.Tensor))
     node = new_node(1 if one_body else 2)
@@ -329,8 +326,7 @@ def device_cond(pred, branch: Callable, state, donate: bool = False):
                 "pool that capture() sets up")
         bodies = _BODIES[-1]
         return _if_form(lambda n: _CardNode(pred, bodies, n), branch, state,
-                        bodies.inputs if donate and not _BUFFERING[0]
-                        else None)
+                        donate and not _BUFFERING[0])
     if not bool(pred):
         return state
     out = branch(state)
@@ -364,19 +360,13 @@ def _buffered_form():
 @contextlib.contextmanager
 def _under(bodies):
     """Inside: ``bodies`` belong to the capture under way (its warm-up
-    too), whose static inputs :func:`static_inputs` then holds."""
+    too), whose static inputs are registered with the core."""
     _BODIES.append(bodies)
     try:
-        yield
+        with static_inputs(bodies.inputs):
+            yield
     finally:
         _BODIES.remove(bodies)
-
-
-def static_inputs() -> frozenset:
-    """The storage addresses of the static inputs of the captures under
-    way, which nothing they run may write in place: every replay reads
-    them."""
-    return frozenset().union(*(b.inputs for b in _BODIES))
 
 
 @contextlib.contextmanager
@@ -550,9 +540,10 @@ def capture(fn: Callable, gen: torch.Generator, *args, **kw) -> CapturedRun:
     - one run is captured into a private pool, with ``gen`` registered,
       each :func:`device_cond` an IF node whose bodies are captured on a
       stream of their own into a second pool, kept with the graph; the
-      static inputs' storages are registered with it and the warm-up
-      (:func:`static_inputs`), so that no IF node and no donated update
-      writes them. The run is one ``captured.run`` span; where
+      static inputs' storages are registered with the core
+      (``core/packed.py`` ``static_inputs``) for it and the warm-up, so
+      that no IF node and no donated update writes them. The run is one
+      ``captured.run`` span; where
       ``torch.profiler`` runs, its spans become device markers in the
       graph (``utils/spans.py``), whose library is loaded before the
       capture is timed.

@@ -31,7 +31,6 @@ from ..core.batching import vmap_gfi, check_batched_layout, layout_key
 from ..core.choicemap import ChoiceMap, EMPTY
 from ..core.gfi import GenFn, batched_interpretation
 from ..core.packed import StepStorage, owned, storage_of
-from .capture import static_inputs
 from .initialize import _per_particle_strata, _batch_safe
 from .state import ParticleFilterSubState
 from .translate import (ExtendingTraceTranslator, UpdatingTraceTranslator,
@@ -80,17 +79,16 @@ def _with_stratum(translator, stratum):
 
 def _donated(state, donate: bool):
     """The scope in which the model's update owns the packed stores that
-    ``state``'s traces hold at their top (an Unfold's), less the static
-    inputs of a capture under way; the writer takes one only whole and
-    held by no other leaf of ``state`` (``core/packed.py``
-    :func:`owned`). No scope for a view or without ``donate``."""
+    ``state``'s traces hold at their top (an Unfold's), ``state`` their
+    donating tree (``core/packed.py`` :func:`owned`). No scope for a view
+    or without ``donate``."""
     if not donate or isinstance(state, ParticleFilterSubState):
         return contextlib.nullcontext()
     inner = state.traces.inner
     stores = inner.values() if isinstance(inner, dict) else ()
     return owned({storage_of(st.mat) for st in stores
-                  if isinstance(st, StepStorage) and st.mat is not None}
-                 - static_inputs(), state)
+                  if isinstance(st, StepStorage) and st.mat is not None},
+                 state)
 
 
 def pf_update(gen, state, new_args=None, argdiffs=None,
@@ -107,11 +105,10 @@ def pf_update(gen, state, new_args=None, argdiffs=None,
     ``donate=True`` is the caller's promise that ``state`` is dead after
     the call (a loop that rebinds it), as with ``device_cond(donate=)``:
     the model's batched update may then write the new steps of the packed
-    trace store into the incoming store in place, where its storage is
-    whole, held by no other leaf of ``state`` and no static input of a
-    capture under way, instead of into a copy of the whole store. The default leaves ``state``
-    untouched. Views, translators and the per-particle interpretation
-    ignore it."""
+    trace store into the incoming store in place where
+    ``core/packed.py`` ``may_overwrite`` allows it, instead of into a copy
+    of the whole store. The default leaves ``state`` untouched. Views,
+    translators and the per-particle interpretation ignore it."""
     traces, log_weights, n, scatter = _block(state)
 
     if translator is None and proposal is not None and bwd_proposal is None:

@@ -70,6 +70,7 @@ from genparticlefilters_tpu_torch.core.tree import (  # noqa: E402
 from genparticlefilters_tpu_torch.models import (  # noqa: E402
     linear_gaussian as tlg, object_motion as tom, stochastic_volatility as tsv,
     tempered as ttm)
+from genparticlefilters_tpu_torch.core import packed as P  # noqa: E402
 from genparticlefilters_tpu_torch.ops import graph_cond  # noqa: E402
 from genparticlefilters_tpu_torch.smc.algorithms import (  # noqa: E402
     _resample_rejuvenate, run_particle_filter, tempered_smc)
@@ -464,14 +465,16 @@ def _poison(buf):
 
 def _if_eager(take, branch, state, inputs=None):
     """``_if_form`` on a stand-in node, replayed once with predicate
-    ``take``; ``inputs`` as ``_if_form`` takes it (``None``: no donation,
-    a set of storage addresses: donate what they do not hold)."""
+    ``take``; ``inputs``: ``None``, no donation; a set of storage
+    addresses, donation with those registered as a capture's static
+    inputs (``core/packed.py`` ``static_inputs``)."""
     nodes = []
 
     def new_node(bodies):
         nodes.append(_StandInNode(bodies, take))
         return nodes[-1]
-    out = cap._if_form(new_node, branch, state, inputs)
+    with P.static_inputs(inputs or ()):
+        out = cap._if_form(new_node, branch, state, inputs is not None)
     return out, nodes[0]
 
 
@@ -544,7 +547,7 @@ def test_donated_form_matches_the_select_form(case, take):
     want = cap._select(torch.tensor(take), branch, state)
     in_leaves = tree_flatten(state)[0]
     kept = [o is x for x, o in zip(in_leaves, tree_flatten(branch(state))[0])]
-    own = cap._donatable(in_leaves, frozenset())
+    own = cap._donatable(in_leaves)
     out, node = _if_eager(take, branch, state, frozenset())
     _assert_bit_equal(out, want)
     replaced = [i for i, (x, k) in enumerate(zip(in_leaves, kept))
@@ -578,7 +581,7 @@ def test_donated_replay_writes_only_donated_leaves(case, take):
     values."""
     state, branch = _BRANCH_CASES[case]()
     in_leaves = tree_flatten(state)[0]
-    own = cap._donatable(in_leaves, frozenset())
+    own = cap._donatable(in_leaves)
     snap = _snapshot(state)
     out, node = _if_eager(take, branch, state, frozenset())
     mine = {id(in_leaves[i]) for i in own} | {id(b) for b in node.buffers}
@@ -606,7 +609,8 @@ def test_shared_and_registered_leaves_are_buffered():
 
     def branch(s):
         return tuple(x * 3 + 1 for x in s)
-    assert cap._donatable(state, _storages(given)) == {0}
+    with P.static_inputs(_storages(given)):
+        assert cap._donatable(state) == {0}
     for take in (False, True):
         before = [x.clone() for x in state]
         want = cap._select(torch.tensor(take), branch, state)
@@ -784,8 +788,8 @@ def _as_if_capturing(monkeypatch, gen=None, inputs=frozenset()):
         return nodes[-1]
     monkeypatch.setattr(cap, "_graph_form", lambda pred: True)
     monkeypatch.setattr(cap, "_CardNode", card_node)
-    monkeypatch.setattr(cap, "_BODIES", [types.SimpleNamespace(
-        inputs=frozenset(inputs))])
+    monkeypatch.setattr(cap, "_BODIES", [types.SimpleNamespace()])
+    monkeypatch.setattr(P, "_STATIC", [frozenset(inputs)])
     return nodes
 
 

@@ -8,7 +8,9 @@ the public ``pf_update`` leaves its input untouched; ``generate``'s
 zero-filled empty store holds the bits of the old per-leaf zeros and
 concatenation; the object-motion, SV, MOT and MOT-DA drivers give the
 same final state bit for bit with donation and with every write forced
-to copy (``packed._owns`` patched), and count no copy of the update.
+to copy (``packed.may_overwrite``, the one ownership rule, patched),
+and count no copy of the update; the IF node and the store writer decide
+alike where a tensor may be overwritten.
 
 Marked ``chip``, on the card (the file imports no JAX: run it there with
 ``python -m pytest --noconftest tests/test_torch_store_donation.py -m
@@ -20,7 +22,6 @@ one seed, count no store copy per replay, and run ``T`` fewer
 
 import contextlib
 import importlib
-import types
 
 import pytest
 import torch
@@ -183,6 +184,54 @@ def test_per_particle_form_writes_out_of_place_uncounted():
     assert P.storage_of(got.mat) != P.storage_of(st.mat)
 
 
+# --- one rule for the IF node and the store writer -------------------------
+
+def _rule_case(case):
+    """``(store, donating tree, static inputs, column)`` for ``case``, a
+    store of one int32 row per step; "empty" holds no particle."""
+    g = _gen(13)
+    st = P.make_storage({"i": torch.randint(0, 9, (T, 6), dtype=torch.int32,
+                                            generator=g)}, {"i": 1}, T)
+    n = 0 if case == "empty" else 6
+    if case == "empty":
+        st = P.StepStorage(torch.empty((T, 0), dtype=torch.int32), (),
+                           st.layout)
+    elif case == "view":
+        big = torch.cat([st.mat, st.mat[:1]])
+        st = P.StepStorage(big[:T], st.extras, st.layout)
+    holder = {"store": st, "w": torch.zeros(n)}
+    if case == "shared":
+        holder["parents"] = st.mat[0]
+    static = [P.storage_of(st.mat)] if case == "static" else []
+    col = {"i": torch.randint(0, 9, (n,), dtype=torch.int32, generator=g)}
+    return st, holder, static, col
+
+
+@pytest.mark.parametrize("case,want", [
+    ("alone", (True, True)), ("held once", (True, True)),
+    ("view", (False, False)), ("shared", (False, False)),
+    ("static", (False, False)), ("empty", (True, False))])
+def test_the_if_node_and_the_writer_decide_alike(case, want):
+    """``(IF node donates mat, writer writes mat in place)``: one rule
+    (``packed.may_overwrite``) for both, on a whole unshared ``mat`` (alone
+    on its storage, and held once by the tree with a view outside it), a
+    view, a storage another leaf shares, a registered static input; an
+    empty ``mat`` keeps each caller's answer (donated; copied)."""
+    st, holder, static, col = _rule_case(case)
+    outside = st.mat[:1] if case == "held once" else None
+    if case in ("alone", "held once"):
+        assert P._alone(st.mat) == (outside is None)
+    leaves = tree_flatten(holder)[0]
+    i = next(i for i, x in enumerate(leaves) if x is st.mat)
+    with P.static_inputs(static):
+        donated = i in cap._donatable(leaves)
+        with P.owned([P.storage_of(st.mat)], holder), _writes() as w:
+            got = P.write_steps(st, 2, [col])
+    assert (donated, w["in_place"] == 1) == want
+    assert w["in_place"] + w["copied"] == 1
+    assert (got.mat is st.mat) == want[1]
+
+
 # --- generate's empty store ---------------------------------------------------
 
 def _old_empty(col, spec, T, batched=True):
@@ -226,7 +275,7 @@ def test_a_built_store_is_a_tensor_of_its_own():
 def _old_writer(monkeypatch):
     """The parent's writer: every store copied, the empty store built
     from per-leaf zeros by concatenation."""
-    monkeypatch.setattr(P, "_owns", lambda mat: False)
+    monkeypatch.setattr(P, "may_overwrite", lambda x, holder=None: False)
     monkeypatch.setattr(C, "zeros_storage", _old_empty)
 
 
@@ -328,8 +377,7 @@ def test_a_store_that_is_not_whole_and_own_is_copied(case, monkeypatch):
     state, x0, obs = _om_state()
     state, inputs = case(state)
     if inputs is not None:
-        monkeypatch.setattr(cap, "_BODIES", [types.SimpleNamespace(
-            inputs=inputs)])
+        monkeypatch.setattr(P, "_STATIC", [inputs])
     want = _update(state, x0, obs, donate=False)
     snap = _snapshot(state)
     with _writes() as w:
@@ -471,7 +519,8 @@ def test_captured_filters_write_in_place_on_the_card(card, name,
         for form in ("donated", "copied"):
             with monkeypatch.context() as mp:
                 if form == "copied":
-                    mp.setattr(P, "_owns", lambda mat: False)
+                    mp.setattr(P, "may_overwrite",
+                               lambda x, holder=None: False)
                 gen = _gen(0, card)
                 run, t_max = _captured(name, gen, card, 0.5)
             runs[form] = run.store_writes
