@@ -14,8 +14,8 @@ non-zero and no result line is printed):
 2. build: compile the kernels for sm_90a, one nvcc per source, side by
    side: G1 (csrc/stairs_gather.cu), G2 (csrc/stairs_gather_u.cu), G3
    (csrc/gather_parents.cu, column and row mode), G4
-   (csrc/merge_count.cu), G5 (csrc/max_scan.cu) and the conditional-node
-   shim
+   (csrc/merge_count.cu), G5 (csrc/max_scan.cu), the ESS check
+   (csrc/ess_check.cu) and the conditional-node shim
    (csrc/graph_cond.cu, which refuses a toolkit older than 12.8), whose
    runtime and driver versions are printed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -24,7 +24,14 @@ non-zero and no result line is printed):
    all-equal u, n or m = 1, m = 4n and n = 4m, m = 0; G3's row mode at
    widths 1-16, a view off a 16-byte boundary, M = N/4 and 4N, extreme
    bit patterns; G5 on int32 and float32 rows around its tiles, with
-   one-ulp dips, NaN and signed zeros, against torch.cummax); graph_cond: a donating toy device_cond on a state of
+   one-ulp dips, NaN and signed zeros, against torch.cummax; the ESS
+   check at N = 1 to 1M on random, degenerate, equal, wide, partly -inf,
+   NaN, all -inf and +inf weights and on misaligned views: its predicate
+   equal to the logsumexp chain's at 8 thresholds (ess_frac 1 on equal
+   weights included), its ESS within 1e-5 of the chain's; then 20
+   replays of captured checks bit-equal, and
+   the graph nodes inside one ess_check span, the kernel's against the
+   chain's); graph_cond: a donating toy device_cond on a state of
    three 1M-element leaves (the branch draws) in three forms (the state
    made in the run: one body, both replaced leaves donated; the static
    inputs themselves: both buffered behind an ELSE body; a kept static
@@ -36,7 +43,8 @@ non-zero and no result line is printed):
    headline's 8 replaced leaves at N=100K and 1M, on views off a 16-byte
    boundary with odd byte counts, and on 130 leaves (two launches);
 4. main path: the object-motion filter at N=100K, T=10, systematic
-   resampling, on cuda — G1's launch count must rise during the run — then
+   resampling, on cuda — G1's and the ESS check's launch counts must rise
+   during the run — then
    the posterior against exact enumeration over 4 seeds;
 4a-4e. the other paths, each with every launch count set to 0 just before
    it and read just after: (a) residual resampling at N=100K (G2 counting
@@ -180,7 +188,9 @@ non-zero and no result line is printed):
    call computes the same function, that call (CUDA events, medians:
    device time with calls queued back to back, and one call with the host
    in the loop), with its bound (the bytes it must move over 3.35 TB/s)
-   and its share of the bound, at N=100K and N=1M; the toy device_cond of
+   and its share of the bound, at N=100K and N=1M (the ESS check also at
+   500K, alone with L2 flushed too, beside the chain and
+   torch.logsumexp); the toy device_cond of
    phase 3 as an IF graph against its select graph, each replay one call,
    at both predicates, in the donated and buffered forms; copy_leaves on
    the headline's 8 replaced leaves at N=100K and 1M (bound: each byte
@@ -214,6 +224,11 @@ non-zero and no result line is printed):
    against this tree's G4 and G3 in turns (earlier, this, this, earlier)
    at the shapes of phase 5.
 
+Last, after 4x: every ESS check of one seed's sequence pool in each graph
+cell of the benchmark, evaluated by the kernel and by the chain inside
+the cell's captured graph, with the kernel's predicate driving the run:
+the predicates that differ, each printed with its ESS and threshold.
+
 ``--config34-only`` builds, times configs 3 and 4 beside object motion
 in its own fresh process, and stops there, with no result line;
 ``--repro-only`` builds, runs 4o B and 4c multinomial once and prints
@@ -221,7 +236,7 @@ their LML bits as JSON (no result line).
 
 The line before the last is the card's name and power limit from
 nvidia-smi; before it, a JSON line lists each kernel with its launches on
-the path that exercises it ((4) for G1, (4a) for G2, (4f) for G3's column
+the path that exercises it ((4) for G1 and the ESS check, (4a) for G2, (4f) for G3's column
 mode, (4j) for its row mode, (4d) for G4, the IF nodes and copy_leaves
 launches of 4x's headline capture at N=100K for graph_cond and
 copy_leaves), its largest error against the plain version, its device
@@ -313,8 +328,14 @@ KERNELS = {
                          "genparticlefilters_tpu/models/object_motion.py:107"
                          " (lax.cond's result written into its operand's "
                          "buffers; not a TPU kernel)"),
+    # not a TPU kernel: the JAX package's ESS check is a logsumexp chain
+    # that XLA fuses under jit
+    "ess_check (ESS)": (CSRC + "ess_check.cu",
+                        "genparticlefilters_tpu/utils/weights.py:56 "
+                        "(ess_from_log_weights and the compare; not a TPU "
+                        "kernel)"),
 }
-G1, G2, G3, G3R, G4, G5, GC, CL = KERNELS
+G1, G2, G3, G3R, G4, G5, GC, CL, ESS = KERNELS
 N_TOY = 1 << 20                 # phase 3's device_cond state: 1M per leaf
 # every captured run, kept until 4x ends: once a graph is destroyed, the
 # profiler names the kernels in a later graph's IF bodies after the
@@ -345,11 +366,12 @@ def _wrappers():
                                                          gather_rows)
     from genparticlefilters_tpu_torch.ops.graph_cond import (copy_leaves,
                                                              if_node)
+    from genparticlefilters_tpu_torch.ops.ess_check import ess_below
     from genparticlefilters_tpu_torch.ops.max_scan import max_scan
     from genparticlefilters_tpu_torch.ops.merge_count import merge_count
     return dict(zip(KERNELS, (resample_gather_split, resample_gather_split_u,
                               gather_cols, gather_rows, merge_count,
-                              max_scan, if_node, copy_leaves)))
+                              max_scan, if_node, copy_leaves, ess_below)))
 
 
 def _capture_module():
@@ -663,6 +685,95 @@ def _check_G5(dev, gen):
     return 0
 
 
+ESS_SIZES = (1, 4097, N_MAIN, 500_000, 1_000_000)
+ESS_KINDS = ("random", "degenerate", "uniform", "wide", "partly -inf",
+             "nan", "all -inf", "+inf")
+
+
+def _ess_input(kind, n, gen, dev):
+    """``n`` float32 log weights of ``kind`` on the card: random, one
+    dominant weight, all equal, wide (most exp terms underflow), a third
+    at -inf, or with a NaN, all -inf, a +inf."""
+    x = torch.randn(n, generator=gen, device=dev)
+    if kind == "random":
+        x = 2.0 * x
+    elif kind == "degenerate":
+        x[n // 3] += 60.0
+    elif kind == "uniform":
+        x = torch.full((n,), -3.25, device=dev)
+    elif kind == "wide":
+        x = 40.0 * x
+    elif kind == "partly -inf":
+        x[::3] = -math.inf
+        x[n // 2] = 0.5
+    elif kind == "nan":
+        x[n // 2] = math.nan
+    elif kind == "all -inf":
+        x = torch.full((n,), -math.inf, device=dev)
+    elif kind == "+inf":
+        x[n // 4] = math.inf
+    return x
+
+
+def _ess_compare(lw, label):
+    """The kernel against its plain version on ``lw`` at ess_frac 0, 0.25,
+    0.5, 1 and 1.5 times N, at infinity and at the plain ESS times
+    1 -/+ 1e-4: equal predicates (ess_frac 1 on equal weights included,
+    where the ESS is N up to rounding), the ESS within 1e-5 relative of
+    the chain's, NaN and false where the plain ESS is not finite. Returns
+    the largest relative difference from the chain's ESS."""
+    from genparticlefilters_tpu_torch.ops.ess_check import (ess_below,
+                                                            ess_below_plain)
+    n = lw.shape[0]
+    pess = float(ess_below_plain(lw, 0.0, with_ess=True)[1])
+    thrs = [f * n for f in (0.0, 0.25, 0.5, 1.0, 1.5)] + [math.inf]
+    if math.isfinite(pess):
+        thrs += [pess * (1 - 1e-4), pess * (1 + 1e-4)]
+    err = 0.0
+    for thr in thrs:
+        low, ess = ess_below(lw, thr, with_ess=True)
+        plow = ess_below_plain(lw, thr)
+        e = float(ess)
+        if not math.isfinite(pess):
+            if not (math.isnan(e) and not bool(low) and not bool(plow)):
+                raise AssertionError(f"ESS {label}: ESS {e} predicate "
+                                     f"{bool(low)} where the chain's ESS is "
+                                     f"{pess}")
+            continue
+        err = max(err, abs(e - pess) / pess)
+        if bool(low) != bool(plow):
+            raise AssertionError(f"ESS {label}: predicate {bool(low)} "
+                                 f"against the chain's {bool(plow)} at "
+                                 f"threshold {thr!r} (ESS {e!r}, chain "
+                                 f"{pess!r})")
+    if err > 1e-5:
+        raise AssertionError(f"ESS {label}: relative difference {err:.3g} "
+                             f"from the chain's ESS")
+    return err
+
+
+def _check_ess(dev, gen):
+    err = 0.0
+
+    def compare(lw, label):
+        nonlocal err
+        err = max(err, _ess_compare(lw, label))
+    for kind in ESS_KINDS:
+        for n in ESS_SIZES:
+            compare(_ess_input(kind, n, gen, dev), f"{kind} N={n}")
+        print(f"[3 ESS] {kind} at N = {', '.join(map(str, ESS_SIZES))}: "
+              f"the predicate equal to the chain's at 8 thresholds; so far "
+              f"the ESS within {err:.3g} relative of the chain's")
+    for n in (5, 4097, 1_000_001):
+        big = _ess_input("random", n + 3, gen, dev)
+        for off in (1, 2, 3):
+            compare(big[off:off + n], f"view +{off} N={n}")
+    print(f"[3 ESS] views off a 16-byte boundary (N = 5, 4097, 1000001; "
+          f"offsets 1-3): equal predicates; the ESS within {err:.3g} "
+          f"relative of the chain's")
+    return err
+
+
 def _extreme_pieces(n, dev):
     """One row per extreme int32 bit pattern (0, -1, the int32 limits,
     small and 16-bit values, a float32 NaN, -0.0 and infinities)."""
@@ -930,7 +1041,8 @@ def phase_kernel_vs_plain():
     return dict(zip(KERNELS, (_check_G1(dev, gen), _check_G2(dev, gen),
                               *_check_G3(dev, gen), _check_G4(dev, gen),
                               _check_G5(dev, gen), _check_graph_cond(),
-                              _check_copy_leaves(dev, gen))))
+                              _check_copy_leaves(dev, gen),
+                              _check_ess(dev, gen))))
 
 
 def _data():
@@ -1017,9 +1129,9 @@ def phase_main_path(y_obs):
                               resample_method="systematic")
     torch.cuda.synchronize()
     counts = _counts()
-    launches = counts["stairs_gather (G1)"]
-    if launches < 1:
-        raise AssertionError("the main path never launched G1")
+    missing = [k for k in (G1, ESS) if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"the main path never launched {missing}")
     lml = float(g.log_ml_estimate(st))
     if not math.isfinite(lml):
         raise AssertionError(f"log_ml_est is not finite: {lml}")
@@ -1033,7 +1145,7 @@ def phase_main_path(y_obs):
           f"on cuda: launches {_short(counts)}, LML {lml:.4f}, "
           f"mat {tuple(store.mat.shape)} int32 on cuda")
     _posterior_check(_filter("systematic"), y_obs, N_MAIN, "4")
-    return launches, st
+    return counts, st
 
 
 def _path(label, run, need):
@@ -1056,7 +1168,8 @@ def phase_paths(y_obs, main_state):
     gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa
     st, seen["4a"] = _path(
         "4a residual N=100K",
-        lambda: _filter("residual")(gen(100), y_obs, N_MAIN), (G1, G2, G5))
+        lambda: _filter("residual")(gen(100), y_obs, N_MAIN),
+        (G1, G2, G5, ESS))
     _posterior_check(_filter("residual"), y_obs, N_MAIN, "4a")
     _, seen["4b"] = _path(
         "4b residual N=100",
@@ -3815,6 +3928,183 @@ def _sync_count(run, y_obs, n):
     return len(syncs), where.most_common(6)
 
 
+def _ess_graph_checks(card):
+    """A captured check replayed 20 times bit for bit (and equal to the
+    eager call), then with new weights each replay; the graph nodes inside
+    one ``*.ess_check`` span (``_ess_low`` captured alone) with the kernel
+    and with the chain it replaced (the parent's check); the kernel's
+    counter over the replays."""
+    from genparticlefilters_tpu_torch.ops import ess_check as ec
+    from genparticlefilters_tpu_torch.smc import algorithms
+    from genparticlefilters_tpu_torch.utils.spans import _graph_nodes
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    xs = [_ess_input("random", n, gen, dev) for n in (1_000_000, N_MAIN,
+                                                      4097)]
+    thrs = [0.5 * x.shape[0] for x in xs]
+    for x, t in zip(xs, thrs):
+        ec.ess_below(x, t, with_ess=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ec.ess_below(x, t, with_ess=True) for x, t in zip(xs, thrs)]
+    ec.ess_check_runs(reset=True)
+
+    def read():
+        return [(bool(lo), e.view(torch.int32).item()) for lo, e in outs]
+    graph.replay()
+    first = read()
+    for _ in range(19):
+        graph.replay()
+        if read() != first:
+            raise AssertionError("ESS: a replay of the captured check "
+                                 "differs from the first")
+    eager = [ec.ess_below(x, t, with_ess=True) for x, t in zip(xs, thrs)]
+    if [(bool(lo), e.view(torch.int32).item()) for lo, e in eager] != first:
+        raise AssertionError("ESS: the replays differ from the eager call")
+    runs = ec.ess_check_runs()
+    if runs != 20 * 3 + 3:
+        raise AssertionError(f"ESS: the counter read {runs}, not 63")
+    for r in range(10):
+        kind = ESS_KINDS[r % len(ESS_KINDS)]
+        for x in xs:
+            x.copy_(_ess_input(kind, x.shape[0], gen, dev))
+        graph.replay()
+        for x, t, (lo, e) in zip(xs, thrs, outs):
+            lo2, e2 = ec.ess_below(x, t, with_ess=True)
+            if bool(lo) != bool(lo2) or not torch.equal(
+                    e.view(torch.int32), e2.view(torch.int32)):
+                raise AssertionError(f"ESS: replay {r} ({kind}) differs from "
+                                     f"the eager call")
+    print(f"[ess graph] 20 replays of 3 captured checks (N = 1M, 100K, 4097)"
+          f" bit-equal to each other and to the eager call; 10 replays on "
+          f"new weights bit-equal to eager calls; the counter read {runs}")
+    lw = _ess_input("random", N_MAIN, gen, dev)
+    state = type("State", (), {"log_weights": lw, "n_particles": N_MAIN,
+                               "mesh": None})()
+    found = {}
+    kernel = algorithms.ess_below
+    try:
+        for route, fn in (("kernel", kernel),
+                          ("chain (the parent's check)", ec.ess_below_plain)):
+            algorithms.ess_below = fn
+            algorithms._ess_low(state, 0.5, "ess")
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                a = _graph_nodes()
+                low = algorithms._ess_low(state, 0.5, "ess")
+                b = _graph_nodes()
+            g.replay()
+            found[route] = ({k: b[k] - a[k] for k in a}, bool(low))
+            del g
+    finally:
+        algorithms.ess_below = kernel
+    print(f"[ess graph] graph nodes inside one ess_check span (N={N_MAIN}, "
+          f"ess_frac 0.5): " + "; ".join(f"{k}: {v[0]}, predicate {v[1]}"
+                                         for k, v in found.items()))
+    if found["kernel"][0]["nodes"] != 1 or found["kernel"][0]["kernels"] != 1:
+        raise AssertionError(f"ESS: the check is not one node: {found}")
+    if len({v[1] for v in found.values()}) != 1:
+        raise AssertionError(f"ESS: the routes' predicates differ: {found}")
+    return found
+
+
+def _ess_timing(card, sizes=(N_MAIN, 500_000, 1_000_000)):
+    """The kernel alone with L2 flushed and 20 queued, beside the chain it
+    replaced (plain) and ``torch.logsumexp`` (one library call over the
+    same vector), at each size; the bound is the 4N bytes read. Returns
+    the numbers at N_MAIN."""
+    from genparticlefilters_tpu_torch.ops.ess_check import (ess_below,
+                                                            ess_below_plain)
+    from smcbench.harness.devicetime import flushed_seconds
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    for n in sizes:
+        lw = _ess_input("random", n, gen, dev)
+        thr = 0.5 * n
+        fns = {"kernel": lambda: ess_below(lw, thr),
+               "plain": lambda: ess_below_plain(lw, thr),
+               "torch.logsumexp": lambda: torch.logsumexp(lw, 0)}
+        row = _compare_timing(f"ESS] N={n}", fns["kernel"], fns["plain"],
+                              card, 4 * n, fns["torch.logsumexp"])
+        alone = {k: 1e3 * flushed_seconds(f, dev) for k, f in fns.items()}
+        bound = 4 * n / HBM_BYTES_PER_MS
+        print(f"[5 ESS] N={n}: one call alone, L2 flushed (median of 30): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items())
+              + f"; bound {bound:.5f} ms, share {bound / alone['kernel']:.3f}"
+              f"; card {card}")
+        out[n] = dict(row, flushed_ms=alone["kernel"],
+                      plain_flushed_ms=alone["plain"],
+                      library_flushed_ms=alone["torch.logsumexp"])
+    return out[sizes[0]]
+
+
+ESS_FLIP_CELLS = ("om.100k.graph.sys", "om.1m.graph.res", "sv.100k.graph",
+                  "mot.1m.graph")
+
+
+def _ess_flips(card, seed=2_147_483_659):
+    """Every ESS check of one seed's sequence pool in each graph cell of
+    the benchmark, evaluated by the kernel and by the chain it replaced
+    inside the cell's captured graph: the predicates that differ (each
+    with its ESS and threshold) and the largest relative ESS difference.
+    The kernel's predicate drives the run."""
+    from genparticlefilters_tpu_torch.ops.ess_check import ess_below_plain
+    from genparticlefilters_tpu_torch.smc import algorithms
+    from smcbench.harness.spec import Cell
+    dev = torch.device("cuda")
+    kernel = algorithms.ess_below
+    total = {"checks": 0, "flips": 0}
+    for name in ESS_FLIP_CELLS:
+        rec = []
+
+        def both(lw, thr):
+            low, ess = kernel(lw, thr, with_ess=True)
+            plow, pess = ess_below_plain(lw, thr, with_ess=True)
+            if torch.cuda.is_current_stream_capturing():
+                rec.append((low, plow, ess, pess, thr))
+            return low
+        cell = Cell(name)
+        mod = cell.program()
+        seqs = mod.pool(cell, seed, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1_000_003)
+        algorithms.ess_below = both
+        try:
+            prog = mod.Program(cell, gen, seqs)
+        finally:
+            algorithms.ess_below = kernel
+        thr = torch.tensor([r[4] for r in rec], dtype=torch.float64)
+        flips, checks, taken, worst = [], 0, 0, 0.0
+        for i in range(seqs.shape[0]):
+            prog.run(seqs[i])
+            lo = torch.stack([r[0] for r in rec]).cpu()
+            plo = torch.stack([r[1] for r in rec]).cpu()
+            e = torch.stack([r[2] for r in rec]).double().cpu()
+            pe = torch.stack([r[3] for r in rec]).double().cpu()
+            checks += lo.numel()
+            taken += int(lo.sum())
+            fin = torch.isfinite(pe)
+            if bool(fin.any()):
+                worst = max(worst, float(((e - pe).abs() / pe)[fin].max()))
+            for k in torch.nonzero(lo != plo).flatten().tolist():
+                flips.append((i, k, float(e[k]), float(pe[k]),
+                              float(thr[k])))
+        del prog, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        total["checks"] += checks
+        total["flips"] += len(flips)
+        print(f"[ess flips] {name}, seed {seed}: {seqs.shape[0]} sequences, "
+              f"{checks} checks, {taken} taken by the kernel, {len(flips)} "
+              f"predicate flips against the chain, largest relative ESS "
+              f"difference {worst:.3g}; card {card}")
+        for i, k, e, pe, t in flips:
+            print(f"[ess flips] {name} sequence {i} check {k}: kernel ESS "
+                  f"{e!r}, chain ESS {pe!r}, threshold {t!r}")
+    return total
+
+
 def phase_timing(y_obs, card):
     # configs 3 and 4 beside object motion, first: the same cells are timed
     # again after config 5 (_config34_timing)
@@ -3824,6 +4114,7 @@ def phase_timing(y_obs, card):
     kern_ms = _kernel_timing(N_MAIN, card)
     kern_ms[GC] = _graph_cond_timing(card)
     kern_ms[CL] = _copy_leaves_timing(N_MAIN, card)
+    kern_ms[ESS] = _ess_timing(card)
     _copy_leaves_timing(1_000_000, card)
     _kernel_timing(1_000_000, card)
     _skewed_timing(card)
@@ -4220,8 +4511,9 @@ def main():
         torch.distributed.destroy_process_group()
         return
     max_err = phase_kernel_vs_plain()
+    _ess_graph_checks(card)
     y_obs = _data()
-    g1_launches, main_state = phase_main_path(y_obs)
+    main_counts, main_state = phase_main_path(y_obs)
     seen = phase_paths(y_obs, main_state)
     del main_state
     kern_ms = phase_timing(y_obs, card)
@@ -4231,7 +4523,8 @@ def main():
     # the profiler then traces graph replays, so 4x runs after every count
     # of the eager paths
     x_seen = _captured_paths(y_obs)
-    launches = {G1: g1_launches,
+    _ess_flips(card)
+    launches = {G1: main_counts[G1],
                 G2: seen["4a"][G2],
                 G3: seen["4f"][G3],
                 G3R: seen["4j"][G3R],
@@ -4240,7 +4533,8 @@ def main():
                 GC: x_seen[f"4x headline systematic N={N_MAIN} "
                            f"T={T_MAIN}"][GC],
                 CL: x_seen[f"4x headline systematic N={N_MAIN} "
-                           f"T={T_MAIN}"][CL]}
+                           f"T={T_MAIN}"][CL],
+                ESS: main_counts[ESS]}
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     print(json.dumps({"kernels": [{

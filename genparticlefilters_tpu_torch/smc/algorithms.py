@@ -33,8 +33,9 @@ import torch
 
 from ..core.choicemap import EMPTY
 from ..core.gfi import GenFn, NoChange, Extend, UnknownChange
+from ..ops.ess_check import ess_below
 from ..utils.spans import span
-from .state import (ParticleFilterState, effective_sample_size,
+from .state import (ParticleFilterState, _mesh, effective_sample_size,
                     log_ml_estimate, num_particles)
 from .initialize import pf_initialize
 from .update import pf_update
@@ -47,10 +48,17 @@ __all__ = ["run_particle_filter", "tempered_smc"]
 
 def _ess_low(state, ess_frac: float, span_prefix: str):
     """The ESS check, in a ``{span_prefix}.ess_check`` span: ESS below
-    ``ess_frac`` times the count the state holds (:func:`host_pred`)."""
+    ``ess_frac`` times the count the state holds (:func:`host_pred`). An
+    unsharded state's check is :func:`~..ops.ess_check.ess_below` (one
+    kernel on the card, its plain version on the CPU); a sharded state's
+    ESS is the global one."""
     with span(f"{span_prefix}.ess_check"):
-        return host_pred(effective_sample_size(state)
-                         < ess_frac * num_particles(state))
+        threshold = ess_frac * num_particles(state)
+        if _mesh(state) is None:
+            low = ess_below(state.log_weights, threshold)
+        else:
+            low = effective_sample_size(state) < threshold
+        return host_pred(low)
 
 
 def _resample_rejuvenate(gen, state, resample_method, rejuvenate_fn, at,

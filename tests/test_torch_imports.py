@@ -37,7 +37,7 @@ def test_every_module_imports():
                  "models.stochastic_volatility", "models.tempered",
                  "utils.device", "utils.checkpoint", "utils.profiling",
                  "config", "smc.capture", "ops.graph_cond",
-                 "ops.max_scan"):
+                 "ops.max_scan", "ops.ess_check"):
         assert f"genparticlefilters_tpu_torch.{name}" in names
     for name in names:
         importlib.import_module(name)

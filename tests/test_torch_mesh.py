@@ -22,6 +22,8 @@ leaf's particle axis and holds them:
   sharded SMC step equal those of the assembled state; every rank takes
   the same ESS branch of the sharded SMC step of ``dryrun_multichip``
   (update, blockwise + rotate, MH, global resample, translator update);
+- the drivers' ESS check (``_ess_low``) on a sharded state takes the
+  global ESS (two all-gathers), never the one-kernel check;
 - leaf placement: particle-axis leaves cut at their own axis (the packed
   store on axis 1), shared leaves and the LML replicated;
 - E[exp(LML)] = Z over 60 seeds of the composed scheme (blockwise +
@@ -189,6 +191,7 @@ def _worker(rank, world, init_file, out_dir):
             "var": float(tg.var(s, (2, "y"))),
             "pmap": tg.proportionmap(s, (2, "moving")),
             "imbalance": float(tg.block_log_weight_imbalance(s, WORLD))}
+        res["ess_low"] = _ess_low_sharded(s)
         res["dryrun"] = _dryrun(rank, sh, mesh, y)
         res["lml"] = _lml_seeds(rank, mesh)
         try:
@@ -208,6 +211,30 @@ def _flip_moving(tr, t):
 
 
 _flip_moving.batch_safe = True
+
+
+def _ess_low_sharded(s):
+    """The drivers' ESS check on a sharded state, for ess_frac 0, 0.5, 1
+    and 1.5: its predicate, the collectives it made and the calls of the
+    one-kernel check (``ess_below``, which a sharded state never takes)."""
+    from genparticlefilters_tpu_torch.parallel import mesh as pm
+    from genparticlefilters_tpu_torch.smc import algorithms
+    calls = []
+    kernel = algorithms.ess_below
+    algorithms.ess_below = lambda *a, **k: calls.append(a) or kernel(*a, **k)
+    try:
+        out = []
+        for frac in (0.0, 0.5, 1.0, 1.5):
+            before = dict(pm.COLLECTIVES)
+            low = algorithms._ess_low(s, frac, "mesh")
+            out.append({"frac": frac, "low": bool(low),
+                        "collectives": {k: pm.COLLECTIVES[k] - before[k]
+                                        for k in before}})
+    finally:
+        algorithms.ess_below = kernel
+    return {"checks": out, "kernel_calls": len(calls),
+            "ess": float(tg.effective_sample_size(s)),
+            "n": tg.num_particles(s)}
 
 
 def _dryrun(rank, sh, mesh, y):
@@ -436,6 +463,28 @@ def test_sharded_smc_step_global_reductions(world):
     np.testing.assert_allclose(
         r0["imbalance"], float(tg.block_log_weight_imbalance(full, WORLD)),
         atol=1e-5)
+
+
+def test_ess_low_on_a_sharded_state_keeps_the_global_check(world):
+    """The drivers' ESS check (``smc/algorithms.py`` ``_ess_low``) on a
+    sharded state takes the global ESS (two all-gathers), never the
+    one-kernel check of an unsharded state; every rank takes the same
+    branch, the one the assembled state's ESS gives."""
+    res = world[3]
+    full = _assembled_state(world, "step")
+    ess = float(tg.effective_sample_size(full))
+    for r in res:
+        e = r["ess_low"]
+        assert e["kernel_calls"] == 0 and e["n"] == N
+        for c in e["checks"]:
+            assert c["collectives"] == {"all_gather": 2, "broadcast": 0,
+                                        "all_to_all": 0, "ring": 0}, c
+            assert c["low"] == (e["ess"] < c["frac"] * N), c
+    for i in range(4):
+        assert len({r["ess_low"]["checks"][i]["low"] for r in res}) == 1
+    np.testing.assert_allclose(res[0]["ess_low"]["ess"], ess, rtol=1e-5)
+    lows = [c["low"] for c in res[0]["ess_low"]["checks"]]
+    assert lows[0] is False and lows[-1] is True
 
 
 def test_dryrun_step_on_a_sharded_state(world):

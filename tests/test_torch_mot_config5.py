@@ -151,18 +151,18 @@ def test_resizes_pick_the_reference_parents(method, m):
 def _recorded(monkeypatch):
     """Each ESS check's (ESS, count held) and whether it resampled."""
     checks = []
-    ess_fn = algorithms.effective_sample_size
+    ess_fn = algorithms.ess_below
     resample_fn = algorithms.pf_resample
 
-    def ess(state):
-        v = ess_fn(state)
-        checks.append([float(v), state.n_particles, False])
-        return v
+    def ess(log_weights, threshold):
+        low, v = ess_fn(log_weights, threshold, with_ess=True)
+        checks.append([float(v), log_weights.shape[0], False])
+        return low
 
     def resample(*a, **k):
         checks[-1][2] = True
         return resample_fn(*a, **k)
-    monkeypatch.setattr(algorithms, "effective_sample_size", ess)
+    monkeypatch.setattr(algorithms, "ess_below", ess)
     monkeypatch.setattr(algorithms, "pf_resample", resample)
     return checks
 
@@ -371,8 +371,8 @@ def _old_run_particle_filter(gen, model, t_max, n_particles, step_args_fn,
         tg.NoChange() for _ in range(len(step_args_fn(0)) - 1))
     for t in range(1, t_max):
         with span(f"{span_prefix}.ess_check"):
-            low = host_pred(tg.effective_sample_size(state)
-                            < ess_frac * n_particles)
+            low = host_pred(algorithms.ess_below(
+                state.log_weights, ess_frac * n_particles))
         state = device_cond(low, lambda s: algorithms._resample_rejuvenate(
             gen, s, resample_method, rejuvenate_fn, t, span_prefix), state,
             donate=True)

@@ -26,6 +26,7 @@ from genparticlefilters_tpu_torch.core.gfi import Extend, NoChange
 from genparticlefilters_tpu_torch.core.packed import STORE_WRITES
 from genparticlefilters_tpu_torch.core.tree import tree_flatten
 from genparticlefilters_tpu_torch.models import object_motion as om
+from genparticlefilters_tpu_torch.ops.ess_check import ess_below
 from genparticlefilters_tpu_torch.smc.capture import device_cond, host_pred
 from genparticlefilters_tpu_torch.utils.spans import span
 
@@ -82,8 +83,8 @@ def _own_loop(gen, y_obs, n_particles, t_max, ess_frac=0.5,
 
     for t in range(1, t_max):
         with span("om.ess_check"):
-            low = host_pred(tg.effective_sample_size(state)
-                            < ess_frac * n_particles)
+            low = host_pred(ess_below(state.log_weights,
+                                      ess_frac * n_particles))
         state = device_cond(low, lambda s: resample_rejuvenate(s, t), state,
                             donate=True)
         with span("om.update"):
